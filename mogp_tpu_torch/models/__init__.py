@@ -1,0 +1,54 @@
+"""Model layer: GP core, multi-output GP, parameters, priors, mean functions."""
+
+from .gp import (
+    FitArtifacts,
+    GPData,
+    GaussianProcess,
+    GaussianProcessBase,
+    PredictResult,
+    gp_fit,
+    gp_predict,
+    gp_predict_tiled,
+    make_gp_data,
+)
+from .meanfun import design_matrix, parse_formula
+from .mogp import MultiOutputGP
+from .params import GPParams
+from .priors import (
+    GPPriors,
+    GammaPrior,
+    InvGammaPrior,
+    LogNormalPrior,
+    MeanPriors,
+    NormalPrior,
+    PriorDist,
+    WeakPrior,
+    max_spacing,
+    min_spacing,
+)
+
+__all__ = [
+    "FitArtifacts",
+    "GPData",
+    "GaussianProcess",
+    "GaussianProcessBase",
+    "PredictResult",
+    "gp_fit",
+    "gp_predict",
+    "gp_predict_tiled",
+    "make_gp_data",
+    "design_matrix",
+    "parse_formula",
+    "MultiOutputGP",
+    "GPParams",
+    "GPPriors",
+    "GammaPrior",
+    "InvGammaPrior",
+    "LogNormalPrior",
+    "MeanPriors",
+    "NormalPrior",
+    "PriorDist",
+    "WeakPrior",
+    "max_spacing",
+    "min_spacing",
+]

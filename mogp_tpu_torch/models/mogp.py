@@ -1,0 +1,344 @@
+"""Multi-output GP emulator: outputs as a lanes axis.
+
+Port of ``mogp_tpu/models/mogp.py``.  Emulators that share a
+configuration signature (kernel, nugget handling, mean specification,
+prior layout) are stacked along the lanes axis and go through the lane-
+batched core of ``models/gp.py`` together: one ``gp_fit`` per signature
+group in :meth:`MultiOutputGP.fit`, one prediction per group in
+:meth:`MultiOutputGP.predict`.
+
+The public surface (``emulators`` list, ``get_indices_fit`` /
+``get_indices_not_fit``, NaN predictions via ``allow_not_fit``) matches
+the reference.
+"""
+
+import hashlib
+import warnings
+
+import numpy as np
+import torch
+
+from ..ops.kernels import KernelBase
+from .gp import (
+    GaussianProcess,
+    PredictResult,
+    _host_summary,
+    _predict_tile_size,
+    cat_lanes,
+    gp_fit,
+    gp_predict,
+    gp_predict_tiled,
+    take_lanes,
+)
+from .priors import GPPriors
+
+__all__ = ["MultiOutputGP", "MultiOutputGPBase"]
+
+
+class MultiOutputGPBase:
+    """Base class for multi-output GPs."""
+
+
+class MultiOutputGP(MultiOutputGPBase):
+    """Multiple independent GP emulators over shared inputs.
+
+    ``device`` and ``dtype`` apply to every emulator (see
+    :class:`GaussianProcess`).
+    """
+
+    def __init__(
+        self,
+        inputs,
+        targets,
+        mean=None,
+        kernel="SquaredExponential",
+        priors=None,
+        nugget="adaptive",
+        inputdict={},
+        use_patsy=True,
+        device=None,
+        dtype=None,
+    ):
+        if inputdict:
+            warnings.warn(
+                "The inputdict interface for mean functions has been deprecated.",
+                DeprecationWarning,
+            )
+
+        inputs = np.asarray(inputs, dtype=np.float64)
+        targets = np.asarray(targets, dtype=np.float64)
+        if inputs.ndim == 1:
+            inputs = np.reshape(inputs, (-1, 1))
+        if targets.ndim == 1:
+            targets = np.reshape(targets, (1, -1))
+        elif targets.ndim != 2:
+            raise ValueError("targets must be either a 1D or 2D array")
+        if inputs.ndim != 2:
+            raise ValueError("inputs must be either a 1D or 2D array")
+        if inputs.shape[0] != targets.shape[1]:
+            raise ValueError(
+                "the first dimension of inputs must be the same length as "
+                "the second dimension of targets (or first if targets is 1D)"
+            )
+
+        self._n_emulators = targets.shape[0]
+        self._n = inputs.shape[0]
+        self._D = inputs.shape[1]
+
+        if not isinstance(mean, list):
+            mean = self.n_emulators * [mean]
+        assert len(mean) == self.n_emulators
+
+        if isinstance(kernel, str) or issubclass(type(kernel), KernelBase):
+            kernel = self.n_emulators * [kernel]
+        assert isinstance(kernel, list)
+        assert len(kernel) == self.n_emulators
+
+        if isinstance(priors, (GPPriors, dict)) or priors is None:
+            priorslist = self.n_emulators * [priors]
+        else:
+            priorslist = list(priors)
+            assert len(priorslist) == self.n_emulators, (
+                "Bad length for list provided for priors to MultiOutputGP"
+            )
+
+        if isinstance(nugget, (str, float)):
+            nugget = self.n_emulators * [nugget]
+        assert isinstance(nugget, list)
+        assert len(nugget) == self.n_emulators
+
+        self.emulators = [
+            GaussianProcess(inputs, single_target, m, k, p, n, device=device, dtype=dtype)
+            for (single_target, m, k, p, n) in zip(
+                targets, mean, kernel, priorslist, nugget
+            )
+        ]
+
+    # -- properties ---------------------------------------------------------
+
+    @property
+    def inputs(self):
+        return self.emulators[0].inputs
+
+    @property
+    def targets(self):
+        return np.array([em.targets for em in self.emulators])
+
+    @property
+    def D(self):
+        return self._D
+
+    @property
+    def n(self):
+        return self._n
+
+    @property
+    def n_params(self):
+        return [em.n_params for em in self.emulators]
+
+    @property
+    def n_emulators(self):
+        return self._n_emulators
+
+    def reset_fit_status(self):
+        for em in self.emulators:
+            em.theta = None
+
+    def _process_inputs(self, inputs):
+        return self.emulators[0]._process_inputs(inputs)
+
+    # -- grouping for batched execution -------------------------------------
+
+    @staticmethod
+    def _mean_sig(em):
+        """Hashable identity of an emulator's mean specification.  The
+        mean must be part of the batch signature: grouped prediction
+        evaluates ONE design matrix for the whole group, so two emulators
+        with different formulas of the same width (``"x[0]"`` vs
+        ``"x[1]"``) must not batch together.  Memoized on the emulator."""
+        key = getattr(em, "_mean_sig_cache", None)
+        if key is None:
+            mean = em._mean
+            if mean is None or isinstance(mean, str):
+                key = ("s", mean)
+            elif callable(mean):
+                key = ("c", id(mean))
+            else:
+                key = ("a", hashlib.sha1(
+                    np.ascontiguousarray(
+                        np.asarray(mean, dtype=np.float64)
+                    ).tobytes()
+                ).hexdigest())
+            em._mean_sig_cache = key
+        return key
+
+    def _signature(self, em):
+        """Emulators with equal signatures stack into one lanes batch."""
+        return (
+            em.kernel,
+            em.nugget_type,
+            em.n_mean,
+            self._mean_sig(em),
+            em._prior_codes,
+        )
+
+    def _groups(self, emulators=None):
+        groups = {}
+        emulators = self.emulators if emulators is None else emulators
+        for idx, em in enumerate(emulators):
+            groups.setdefault(self._signature(em), []).append(idx)
+        return groups
+
+    # -- prediction ---------------------------------------------------------
+
+    def predict(
+        self,
+        testing,
+        unc=True,
+        deriv=False,
+        include_nugget=True,
+        full_cov=False,
+        allow_not_fit=False,
+        processes=None,
+        max_batch_size=None,
+    ):
+        """Batched prediction over all emulators.
+
+        ``processes`` is accepted for API parity and ignored: outputs are a
+        lanes axis.  ``max_batch_size`` bounds device memory by tiling the
+        query axis; default ``None`` auto-chunks very large sweeps.
+        """
+        testing = np.asarray(testing, dtype=np.float64)
+        if self.D == 1 and testing.ndim == 1:
+            testing = np.reshape(testing, (-1, 1))
+        elif testing.ndim == 1:
+            testing = np.reshape(testing, (1, len(testing)))
+        assert testing.ndim == 2, "testing must be a 2D array"
+        n_testing, D = testing.shape
+        assert D == self.D, (
+            "second dimension of testing must be the same as the number of "
+            "input parameters"
+        )
+        if deriv:
+            warnings.warn(
+                "Prediction derivatives have been deprecated and are no "
+                "longer supported",
+                DeprecationWarning,
+            )
+
+        unfit = self.get_indices_not_fit()
+        if unfit and not allow_not_fit:
+            raise ValueError(
+                "hyperparameters have not been fit for emulators {}".format(unfit)
+            )
+
+        mean_out = np.full((self.n_emulators, n_testing), np.nan)
+        if full_cov:
+            unc_out = np.full((self.n_emulators, n_testing, n_testing), np.nan)
+        else:
+            unc_out = np.full((self.n_emulators, n_testing), np.nan)
+
+        fit_indices = [i for i in range(self.n_emulators) if i not in set(unfit)]
+        for indices in self._groups([self.emulators[i] for i in fit_indices]).values():
+            global_idx = [fit_indices[i] for i in indices]
+            ems = [self.emulators[i] for i in global_idx]
+            em0 = ems[0]
+            arts = cat_lanes([em._artifacts for em in ems])
+            data = cat_lanes([em._data for em in ems])
+            tile = 0 if full_cov else _predict_tile_size(
+                n_testing, max_batch_size, n_train=self.n, n_lanes=len(ems)
+            )
+            args = (
+                arts, data, em0._tensor(testing),
+                em0._tensor(em0.get_design_matrix(testing)), em0.kernel, em0.nugget_type,
+            )
+            if tile:
+                mu, var = gp_predict_tiled(
+                    *args, unc=bool(unc), include_nugget=bool(include_nugget), tile=tile,
+                )
+            else:
+                mu, var = gp_predict(
+                    *args, unc=bool(unc), include_nugget=bool(include_nugget),
+                    full_cov=bool(full_cov),
+                )
+            mean_out[global_idx] = mu.to("cpu", torch.float64).numpy()
+            if unc:
+                unc_out[global_idx] = var.to("cpu", torch.float64).numpy()
+
+        return PredictResult(
+            mean=mean_out, unc=(unc_out if unc else None), deriv=None
+        )
+
+    def __call__(self, testing, processes=None):
+        return self.predict(testing, unc=False, deriv=False, processes=processes)[0]
+
+    # -- fitting ------------------------------------------------------------
+
+    def fit(self, thetas):
+        """Fit all emulators at given hyperparameters.
+
+        ``thetas`` is one raw vector per emulator: a ``(n_emulators,
+        n_params)`` array or a list of arrays (or ``GPParams``).  One
+        batched ``gp_fit`` runs per signature group.
+        """
+        thetas = list(thetas)
+        assert len(thetas) == self.n_emulators, "need one theta per emulator"
+        self._fit_lanes(range(self.n_emulators), thetas)
+
+    def _fit_lanes(self, indices, thetas):
+        """Fit emulators ``indices`` at ``thetas`` (same order), one
+        ``gp_fit`` per signature group and one host transfer per group."""
+        ems = [self.emulators[i] for i in indices]
+        for group in self._groups(ems).values():
+            group_ems = [ems[i] for i in group]
+            raws = [em._coerce_theta(thetas[i]) for em, i in zip(group_ems, group)]
+            em0 = group_ems[0]
+            arts = gp_fit(
+                em0._tensor(np.stack(raws)),
+                cat_lanes([em._data for em in group_ems]),
+                em0.kernel,
+                em0.nugget_type,
+                progressive_ok=False,
+            )
+            summary = _host_summary(arts)
+            for lane, (em, raw) in enumerate(zip(group_ems, raws)):
+                em._set_fit_artifacts(
+                    raw, take_lanes(arts, slice(lane, lane + 1)), summary[lane]
+                )
+
+    def fit_emulator(self, index, theta):
+        self.emulators[index].fit(theta)
+
+    # -- fit-status bookkeeping ---------------------------------------------
+
+    def get_indices_fit(self):
+        return [
+            idx
+            for idx, em in enumerate(self.emulators)
+            if em.theta.get_data() is not None
+        ]
+
+    def get_indices_not_fit(self):
+        return [
+            idx
+            for idx, em in enumerate(self.emulators)
+            if em.theta.get_data() is None
+        ]
+
+    def get_emulators_fit(self):
+        return [em for em in self.emulators if em.theta.get_data() is not None]
+
+    def get_emulators_not_fit(self):
+        return [em for em in self.emulators if em.theta.get_data() is None]
+
+    def __str__(self):
+        return (
+            "Multi-Output Gaussian Process with:\n"
+            + str(self.n_emulators)
+            + " emulators\n"
+            + str(self.n)
+            + " training examples\n"
+            + str(self.D)
+            + " input variables"
+        )
+
