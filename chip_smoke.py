@@ -11,15 +11,26 @@ Phases (any failure raises, so the exit code is not 0):
    CUDA kernels from ``mogp_tpu_torch/csrc`` (``nvcc``, at first use).
 2. Every kernel against its plain PyTorch version on the card, at the
    bring-up shapes and at the shapes the main path gives it, in float32
-   and float64, then timed against the plain version.
+   and float64, then timed against the plain version: K1, the fused
+   kernel-matrix build (2), and K2, the batched Cholesky (2b), on both
+   sides of its shared-memory bound (n = 340 in float32, 240 in float64)
+   and at n = 1000; every K2 call must launch the kernel once.
 3. The serving path at full width: a 64-output ``MultiOutputGP`` with
    n = 210 training points in D = 14 dimensions (``nugget="adaptive"``,
    float32 on the card) fit at seeded hyperparameters, then asked for
-   means and variances at 10^6 seeded query points.  The kernels' launch
-   counters are zeroed just before and read just after; the first 4096
+   means and variances at 10^6 seeded query points.  The first 4096
    queries are held against the same problem run by the port on the CPU in
    float64.
+4. The MAP fit at full width, with the protocol of ``bench.py:107-128``:
+   ``fit_GP_MAP`` of the same 64 outputs, 15 restarts each, ``maxiter=50``
+   (race on, one-rung trajectory ladder), float32 on the card; a warm-up
+   fit from seed 0, then the timed refit from seed 1.  All 64 outputs must
+   fit; the winners of the first 4 outputs, re-evaluated in float64, must
+   be within 0.25 nats on average of the same seeded fit run by the port
+   on the CPU in float64.
 
+Around each of phases 3 and 4 the kernels' launch counters are zeroed just
+before and read just after; every kernel of the path must have launched.
 The last three lines of standard output are a JSON object describing each
 kernel, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
@@ -47,6 +58,16 @@ KERNEL_TOL = {"float32": (2e-5, 2e-6), "float64": (1e-12, 1e-13)}
 # order 1-4), 4.1e-6 in the variances and 2.7e-6 (relative) in the log
 # posteriors.  The limits are ten times that.
 SLICE_TOL = {"mean": 5.6e-4, "unc": 4.1e-5, "logpost_rel": 2.7e-5}
+
+# phase 2b: max |L - L_plain| / max |L_plain| on B B^T + n I (condition
+# ~5).  Both are float Cholesky factorizations in other summation orders:
+# ~sqrt(n) eps of |L|, about 2e-6 in float32 at n = 1000 (9.1e-7 measured
+# at n = 340 on an H100); the limits leave ten times that.
+CHOL_TOL = {"float32": 1e-5, "float64": 1e-12}
+
+# phase 4: the MAP fit (bench.py:107-128) and its quality gate, the mean
+# NLP gap of the JAX package's own test (tests/test_fitting.py:144-146)
+N_TRIES, MAXITER, N_QUALITY, NLP_GAP = 15, 50, 4, 0.25
 
 
 def make_data(n_outputs, seed=1234):
@@ -187,7 +208,128 @@ def phase_kernels(km, main_shape):
     return record
 
 
-def phase_slice(mogp_tpu_torch, km, label):
+def _rel_err(L, P):
+    return ((L - P).abs().max() / P.abs().max()).item()
+
+
+def spd_batch(B, n, dtype, seed):
+    """``X X^T + n I`` with X standard normal from a seeded generator."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(B, n, n, generator=g, dtype=torch.float64, device="cuda")
+    A = X @ X.transpose(-1, -2) + n * torch.eye(n, dtype=torch.float64, device="cuda")
+    return A.to(dtype)
+
+
+def _launch_once(kb, A):
+    """``cholesky_batched(A)``, checking that it launched the kernel once."""
+    import torch
+
+    before = kb.launches
+    L = kb.cholesky_batched(A)
+    torch.cuda.synchronize()
+    if kb.launches != before + 1:
+        raise AssertionError("cholesky_batched did not launch its kernel once")
+    return L
+
+
+def _check_bad_lane(kb, A, label):
+    """Lane 1 of ``A`` is ``-I``: it must come out all NaN, the others
+    finite and within the limit of their plain factors."""
+    import torch
+
+    tol = CHOL_TOL[str(A.dtype)[6:]]
+    L = _launch_once(kb, A)
+    P = kb.cholesky_batched_plain(A)
+    good = [i for i in range(A.shape[0]) if i != 1]
+    err = _rel_err(L[good], P[good])
+    ok = (bool(torch.isnan(L[1]).all()) and bool(torch.isnan(P[1]).all())
+          and bool(torch.isfinite(L[good]).all()) and err <= tol)
+    print("phase 2b: cholesky_batched {} {} with lane 1 = -I: lane 1 all NaN {}, "
+          "others finite {}, rel err {} (limit {}) {}".format(
+              str(A.dtype)[6:], label, bool(torch.isnan(L[1]).all()),
+              bool(torch.isfinite(L[good]).all()), err, tol, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("cholesky_batched fails the non-PD lane check")
+
+
+def phase_cholesky(kb):
+    """K2 against its plain version, checked and timed, on both of its
+    paths (shared memory up to ``max_shared_n``, device memory above);
+    returns the kernel's record for the JSON line, without ``launches``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(5)  # the input of tests/test_pallas.py:34-55
+    A = rng.randn(4, 40, 40)
+    A = A @ np.transpose(A, (0, 2, 1)) + 40 * np.eye(40)
+    A[1] = -np.eye(40)
+    main = (960, N_POINTS)
+    main_err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        tol = CHOL_TOL[name]
+        bound = kb.max_shared_n(dtype)
+        _check_bad_lane(kb, torch.as_tensor(A, dtype=dtype, device="cuda"), "(4, 40, 40)")
+        big = spd_batch(4, bound + 1, dtype, 98)
+        big[1] = -torch.eye(bound + 1, dtype=dtype, device="cuda")
+        _check_bad_lane(kb, big, "(4, {0}, {0}), device-memory path".format(bound + 1))
+        del big
+        shapes = [main, (384, N_POINTS), (N_OUTPUTS, 15), (16, 1), (8, bound), (8, bound + 1),
+                  (4, 1000)]
+        for seed, (B, n) in enumerate(shapes):
+            A_ = spd_batch(B, n, dtype, seed)
+            L = _launch_once(kb, A_)
+            P = kb.cholesky_batched_plain(A_)
+            err = _rel_err(L, P)
+            upper0 = bool((torch.triu(L, 1) == 0).all())
+            ok = err <= tol and upper0 and bool(torch.isfinite(L).all())
+            print("phase 2b: cholesky_batched {} ({}, {}, {}), {} path: rel err {} (limit {}), "
+                  "max abs err {}, upper triangle zero {} {}".format(
+                      name, B, n, n, "shared-memory" if n <= bound else "device-memory", err,
+                      tol, (L - P).abs().max().item(), upper0, "ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError("cholesky_batched disagrees with its plain version")
+            if (B, n) == main and dtype == torch.float32:
+                main_err = (L - P).abs().max().item()
+            del A_, L, P
+
+    timings = {}
+    for dtype in (torch.float32, torch.float64):
+        bound = kb.max_shared_n(dtype)
+        for B, n in (main, (384, N_POINTS), (N_OUTPUTS, bound + 1), (N_TRIES, 1000)):
+            A_ = spd_batch(B, n, dtype, 7)
+
+            def kern():
+                return kb.cholesky_batched(A_)
+
+            def plain():
+                return kb.cholesky_batched_plain(A_)
+
+            p1, k1, k2, p2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            flops = B * n**3 / 3
+            print("phase 2b: time cholesky_batched {} ({}, {}, {}): kernel {} ms ({} {}), "
+                  "plain {} ms ({} {}); kernel {} GFLOP/s, {} us per matrix".format(
+                      str(dtype)[6:], B, n, n, ms, k1, k2, plain_ms, p1, p2,
+                      flops / (ms * 1e-3) / 1e9, ms * 1e3 / B))
+            timings[(str(dtype)[6:], B, n)] = (ms, plain_ms)
+            del A_
+            torch.cuda.empty_cache()
+    ms, plain_ms = timings[("float32",) + main]
+    return {
+        "name": "cholesky_batched",
+        "route": "cuda",
+        "source": "mogp_tpu_torch/csrc/cholesky_batched.cu",
+        "replaces": "tools/pallas_cholesky_experiment.py:124",
+        "max_abs_err": main_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+    }
+
+
+def phase_slice(mogp_tpu_torch, km, kb, label):
     import numpy as np
     import torch
 
@@ -197,7 +339,7 @@ def phase_slice(mogp_tpu_torch, km, label):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    km.launches = 0
+    km.launches = kb.launches = 0
     t0 = time.perf_counter()
     mgp = mogp_tpu_torch.MultiOutputGP(x, y, nugget="adaptive", device="cuda")
     t1 = time.perf_counter()
@@ -206,7 +348,7 @@ def phase_slice(mogp_tpu_torch, km, label):
     t2 = time.perf_counter()
     res = mgp.predict(q)  # returns host arrays: the device work is done
     t3 = time.perf_counter()
-    launches = km.launches
+    launches, chol_launches = km.launches, kb.launches
 
     if res.mean.shape != (N_OUTPUTS, N_QUERIES) or res.unc.shape != (N_OUTPUTS, N_QUERIES):
         raise AssertionError("prediction has the wrong shape")
@@ -214,15 +356,17 @@ def phase_slice(mogp_tpu_torch, km, label):
         raise AssertionError("non-finite predictive means")
     if not (np.isfinite(res.unc).all() and (res.unc >= 0).all()):
         raise AssertionError("predictive variances not finite and >= 0")
-    if launches <= 0:
-        raise AssertionError("the main path did not launch kernel_matrix")
+    if launches <= 0 or chol_launches <= 0:
+        raise AssertionError("the serving path did not launch kernel_matrix and cholesky_batched")
     peak = torch.cuda.max_memory_allocated()
     construct_s, fit_s, predict_s = t1 - t0, t2 - t1, t3 - t2
     print("phase 3: MultiOutputGP {} outputs, n={}, D={}, float32 on {}: construct {} s, "
           "fit {} s, predict {} points {} s = {} points/s ({} output-points/s); "
-          "kernel_matrix launches {}; peak device memory {} GB".format(
+          "kernel_matrix launches {}, cholesky_batched launches {}; peak device memory {} "
+          "GB".format(
               N_OUTPUTS, N_POINTS, N_DIM, label, construct_s, fit_s, N_QUERIES, predict_s,
-              N_QUERIES / predict_s, N_OUTPUTS * N_QUERIES / predict_s, launches, peak / 1e9))
+              N_QUERIES / predict_s, N_OUTPUTS * N_QUERIES / predict_s, launches,
+              chol_launches, peak / 1e9))
 
     # the same fit and predict again, warm
     torch.cuda.synchronize()
@@ -264,6 +408,67 @@ def phase_slice(mogp_tpu_torch, km, label):
     return launches
 
 
+def phase_fit(mogp_tpu_torch, km, kb, label):
+    """The MAP fit at full width (bench.py:107-128); returns K2's launches."""
+    import numpy as np
+    import torch
+    from mogp_tpu_torch.models import fitting
+
+    x, y = make_data(N_OUTPUTS)
+    mgp = mogp_tpu_torch.MultiOutputGP(x, y, nugget="adaptive", device="cuda")
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=N_TRIES, maxiter=MAXITER)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    km.launches = kb.launches = 0
+    np.random.seed(1)
+    t0 = time.perf_counter()
+    mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=N_TRIES, refit=True, maxiter=MAXITER)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches, km_launches = kb.launches, km.launches
+    peak = torch.cuda.max_memory_allocated()
+    n_fit = len(mgp.get_indices_fit())
+    phases = {}
+    for k, v in fitting.last_phase_times:
+        phases[k] = phases.get(k, 0.0) + v
+    print("phase 4: fit_GP_MAP {} outputs x {} restarts, n={}, D={}, maxiter={}, float32 on {}: "
+          "warm-up fit {} s; timed fit {} s = mogp_tsunami_fits_per_sec {}; phases {}; "
+          "outputs fit {}; cholesky_batched launches {} (kernel_matrix {}); peak device "
+          "memory {} GB".format(
+              N_OUTPUTS, N_TRIES, N_POINTS, N_DIM, MAXITER, label, warm_s, fit_s,
+              n_fit / fit_s, phases, n_fit, launches, km_launches, peak / 1e9))
+    if n_fit != N_OUTPUTS:
+        raise AssertionError("only {} of {} outputs were fit".format(n_fit, N_OUTPUTS))
+    if launches <= 0:
+        raise AssertionError("the MAP fit did not launch cholesky_batched")
+
+    # quality: the same seeded fit of the first outputs in float64 on the
+    # CPU; the card's winners re-evaluated in float64 by gp_fit
+    t0 = time.perf_counter()
+    ref = mogp_tpu_torch.MultiOutputGP(x, y[:N_QUALITY], nugget="adaptive", device="cpu")
+    np.random.seed(1)
+    mogp_tpu_torch.fit_GP_MAP(ref, n_tries=N_TRIES, refit=True, maxiter=MAXITER)
+    cpu_s = time.perf_counter() - t0
+    card = mogp_tpu_torch.MultiOutputGP(x, y[:N_QUALITY], nugget="adaptive", device="cpu")
+    card.fit([em.theta.get_data() for em in mgp.emulators[:N_QUALITY]])
+    nlp_card = np.array([em.current_logpost for em in card.emulators])
+    nlp_cpu = np.array([em.current_logpost for em in ref.emulators])
+    gap = float(np.mean(nlp_card - nlp_cpu))
+    ok = bool(np.isfinite(nlp_card).all()) and gap <= NLP_GAP
+    print("phase 4: quality on the first {} outputs: card winners in float64 NLP {}, float64 "
+          "CPU fit NLP {} (took {} s); float32 NLP on the card {}; mean gap {} (limit {}) "
+          "{}".format(N_QUALITY, nlp_card.tolist(), nlp_cpu.tolist(), cpu_s,
+                      [em.current_logpost for em in mgp.emulators[:N_QUALITY]], gap, NLP_GAP,
+                      "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("the card's MAP fit is worse than the float64 reference")
+    return launches
+
+
 def main():
     import torch
 
@@ -275,6 +480,7 @@ def main():
     import mogp_tpu_torch
     from mogp_tpu_torch.models.gp import _predict_tile_size
     from mogp_tpu_torch.ops import _build
+    from mogp_tpu_torch.ops import cholesky_batched as kb
     from mogp_tpu_torch.ops import kernel_matrix as km
 
     if os.path.dirname(os.path.dirname(os.path.abspath(mogp_tpu_torch.__file__))) != here:
@@ -297,9 +503,11 @@ def main():
     tile = _predict_tile_size(N_QUERIES, None, n_train=N_POINTS, n_lanes=N_OUTPUTS) or N_QUERIES
     main_shape = (N_OUTPUTS, N_POINTS, tile, N_DIM)
     record = phase_kernels(km, main_shape)
-    record["launches"] = phase_slice(mogp_tpu_torch, km, smi)
+    chol_record = phase_cholesky(kb)
+    record["launches"] = phase_slice(mogp_tpu_torch, km, kb, smi)
+    chol_record["launches"] = phase_fit(mogp_tpu_torch, km, kb, smi)
 
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, chol_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,12 +3,14 @@
 Same module layout and public names as ``mogp_tpu``; tensors carry an
 explicit leading lanes (outputs) axis where the JAX package used ``vmap``,
 constructors take an explicit ``device=`` and ``dtype=``, and the fused
-kernel-matrix build of the prediction path is a CUDA kernel
-(``csrc/kernel_matrix.cu``).  This package never imports ``jax``.
+kernel-matrix build of the prediction path and the batched Cholesky of the
+MAP fit are CUDA kernels (``csrc/kernel_matrix.cu``,
+``csrc/cholesky_batched.cu``).  This package never imports ``jax``.
 
 Ported so far: the serving path -- construct ``GaussianProcess`` /
-``MultiOutputGP``, ``fit`` at given hyperparameters, ``predict`` -- and
-``.npz`` checkpoints.  MAP fitting and the UQ toolchain come later.
+``MultiOutputGP``, ``fit`` at given hyperparameters, ``predict`` -- the
+MAP fit (``fit_GP_MAP``, batched L-BFGS over outputs x restarts, with the
+race schedule), and ``.npz`` checkpoints.  The UQ toolchain comes later.
 """
 
 __version__ = "0.1.0"
@@ -17,6 +19,7 @@ __version__ = "0.1.0"
 from .models import priors as Priors
 from .ops import kernels as Kernel
 
+from .models.fitting import fit_GP_MAP
 from .models.gp import GaussianProcess, PredictResult
 from .models.mogp import MultiOutputGP
 from .models.params import GPParams
@@ -37,6 +40,7 @@ __all__ = [
     "GaussianProcess",
     "PredictResult",
     "MultiOutputGP",
+    "fit_GP_MAP",
     "GPParams",
     "GPPriors",
     "GammaPrior",

@@ -1,4 +1,5 @@
-"""Model layer: GP core, multi-output GP, parameters, priors, mean functions."""
+"""Model layer: GP core, multi-output GP, MAP fitting, parameters, priors,
+mean functions."""
 
 from .gp import (
     FitArtifacts,
@@ -7,10 +8,12 @@ from .gp import (
     GaussianProcessBase,
     PredictResult,
     gp_fit,
+    gp_nlp,
     gp_predict,
     gp_predict_tiled,
     make_gp_data,
 )
+from .fitting import fit_GP_MAP
 from .meanfun import design_matrix, parse_formula
 from .mogp import MultiOutputGP
 from .params import GPParams
@@ -34,9 +37,11 @@ __all__ = [
     "GaussianProcessBase",
     "PredictResult",
     "gp_fit",
+    "gp_nlp",
     "gp_predict",
     "gp_predict_tiled",
     "make_gp_data",
+    "fit_GP_MAP",
     "design_matrix",
     "parse_formula",
     "MultiOutputGP",

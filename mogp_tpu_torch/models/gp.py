@@ -1,19 +1,22 @@
 """Gaussian Process emulator: functional core over lanes + reference-parity class.
 
-Port of ``mogp_tpu/models/gp.py`` (the serving path: fit at given
-hyperparameters, then predict).  Every function of the core takes a
-leading lanes (outputs) axis ``L`` where the JAX package used ``vmap``:
+Port of ``mogp_tpu/models/gp.py``.  Every function of the core takes a
+leading lanes (outputs, or outputs x restarts) axis ``L`` where the JAX
+package used ``vmap``:
 
 * ``gp_fit``      -- fit-time artifacts and negative log posterior for
                      raw hyperparameters ``(L, P)``;
+* ``gp_nlp``      -- the negative log posterior alone, the MAP objective,
+                     differentiable by autograd;
 * ``gp_predict``  -- predictive mean and (co)variance;
 * ``gp_predict_tiled`` -- the same over fixed-size query tiles, so device
                      memory depends on the tile and not on the query count.
 
 ``GPData`` and ``FitArtifacts`` are NamedTuples of tensors that all carry
 the lanes axis first; :func:`cat_lanes` stacks them and
-:func:`take_lanes` slices them.  Nothing here builds an autograd graph:
-gradients (``gp_nlp``, ``logpost_deriv``) come with the MAP-fit port.
+:func:`take_lanes` slices them.  ``gp_fit`` and prediction build no
+autograd graph; ``gp_nlp`` does, and ``GaussianProcess.logpost_deriv`` /
+``logpost_hessian`` differentiate it.
 """
 
 import warnings
@@ -37,6 +40,7 @@ __all__ = [
     "cat_lanes",
     "take_lanes",
     "gp_fit",
+    "gp_nlp",
     "gp_predict",
     "gp_predict_tiled",
     "tiled_query_map",
@@ -156,13 +160,11 @@ def _matvec(A, v):
     return dot_hp(A, v[..., None])[..., 0]
 
 
-@torch.no_grad()
-def gp_fit(raw, data: GPData, kernel, nugget_type, progressive_ok=True):
-    """Fit-time artifacts for raw hyperparameters ``raw`` ``(L, P)``.
-
-    Covariance build, nugget-aware factorization, analytic mean solve and
-    the negative log posterior including the prior term.
-    """
+def _factor_K(raw, data: GPData, kernel, nugget_type, **factor_kw):
+    """Covariance build and nugget-aware factorization shared by
+    :func:`gp_fit` and :func:`gp_nlp`: ``(n_corr, Kinv, nugget, core)``
+    with ``core`` the stacked half-solve ``W = L^-1 [H | (y - m)]``
+    (``ops/linalg.py``)."""
     n_corr = kernel.get_n_params(data.inputs)
     corr_raw = raw[:, :n_corr]
     sigma2 = torch.exp(raw[:, n_corr])
@@ -176,10 +178,41 @@ def gp_fit(raw, data: GPData, kernel, nugget_type, progressive_ok=True):
 
     m = _matvec(data.dm, data.mean_mean)
     K = sigma2[:, None, None] * kernel.kernel_f(data.inputs, data.inputs, corr_raw)
-    Kinv, nugget = cholesky_factor(K, nugget, nugget_type, progressive_ok=progressive_ok)
-
-    # one stacked half-solve W = L^-1 [H | (y - m)] (ops/linalg.py)
+    Kinv, nugget = cholesky_factor(K, nugget, nugget_type, **factor_kw)
     core = marginal_core(Kinv, data.dm, data.targets - m, data.mean_inv_cov)
+    return n_corr, Kinv, nugget, core
+
+
+def gp_nlp(raw, data: GPData, kernel, nugget_type, reuse_factor=True,
+           sparse_ladder=False, progressive_ok=True):
+    """Negative log posterior ``(L,)`` of raw hyperparameters ``(L, P)``:
+    the MAP objective.  Differentiable by autograd in ``raw``; its
+    gradient replaces the reference's hand-derived ``logpost_deriv``.
+
+    The lean form: one lower half-solve, no upper sweeps, no prediction
+    artifacts.  ``reuse_factor`` / ``sparse_ladder`` / ``progressive_ok``
+    go to the adaptive jitter ladder (``ops/cholesky.py``).
+    """
+    n_corr, Kinv, _, core = _factor_K(
+        raw, data, kernel, nugget_type, reuse_factor=reuse_factor,
+        sparse_ladder=sparse_ladder, progressive_ok=progressive_ok,
+    )
+    logpost = marginal_nlp(core, Kinv, data.mean_logdet_cov, data.n_coeff)
+    return logpost - _prior_logp(data, raw, n_corr, nugget_type)
+
+
+@torch.no_grad()
+def gp_fit(raw, data: GPData, kernel, nugget_type, reuse_factor=True,
+           sparse_ladder=False, progressive_ok=True):
+    """Fit-time artifacts for raw hyperparameters ``raw`` ``(L, P)``.
+
+    Covariance build, nugget-aware factorization, analytic mean solve and
+    the negative log posterior including the prior term.
+    """
+    n_corr, Kinv, nugget, core = _factor_K(
+        raw, data, kernel, nugget_type, reuse_factor=reuse_factor,
+        sparse_ladder=sparse_ladder, progressive_ok=progressive_ok,
+    )
     Ainv = core.Ainv
 
     # analytic mean: beta_hat = A^-1 (H^T K^-1 y + B^-1 b)
@@ -655,6 +688,32 @@ class GaussianProcess(GaussianProcessBase):
         if self._refit(theta):
             self.fit(theta)
         return self.current_logpost
+
+    def _nlp_of(self, reuse_factor=True):
+        """``gp_nlp`` of one raw vector ``(P,)`` on this emulator's data."""
+        return lambda r: gp_nlp(r[None], self._data, self.kernel, self._nugget_type,
+                                reuse_factor=reuse_factor)[0]
+
+    def logpost_deriv(self, theta):
+        """Gradient of the negative log posterior, by autograd."""
+        theta = np.asarray(theta, dtype=np.float64)
+        if self._refit(theta):
+            self.fit(theta)
+        with torch.enable_grad():
+            raw = self._tensor(theta).requires_grad_(True)
+            (g,) = torch.autograd.grad(self._nlp_of()(raw), raw)
+        return g.to("cpu", torch.float64).numpy()
+
+    def logpost_hessian(self, theta):
+        """Hessian of the negative log posterior, by autograd twice.  The
+        factor is recomputed differentiably (``reuse_factor=False``), as
+        the JAX package does for its Hessian."""
+        theta = np.asarray(theta, dtype=np.float64)
+        if self._refit(theta):
+            self.fit(theta)
+        h = torch.autograd.functional.hessian(
+            self._nlp_of(reuse_factor=False), self._tensor(theta))
+        return h.to("cpu", torch.float64).numpy()
 
     def _refit(self, newtheta):
         """Refit check."""

@@ -12,9 +12,10 @@ Port of ``mogp_tpu/models/priors.py``:
 * Data-driven default priors (``GPPriors.default_priors``) do their scipy
   root solves on the host at model construction.
 
-Drawing raw samples for optimizer restarts on the device
-(``dist_sample_raw`` / ``GPPriors.sample_raw``) comes with the MAP-fit
-port; the host samplers (``sample`` / ``sample_n``) are here.
+Restart starts of the MAP fit come from the host samplers (``sample`` /
+``sample_n``, numpy's global RNG), so a seeded fit draws the same starts
+as ``mogp_tpu``.  Drawing them on the device (``dist_sample_raw`` /
+``GPPriors.sample_raw``) is not ported yet.
 """
 
 import math
@@ -90,16 +91,18 @@ def dist_logp(code, a, b, x):
     the transformed value ``x``, elementwise over tensors of one shape.
 
     Every branch is evaluated on every slot and ``torch.where`` picks the
-    coded one (weak priors give 0).  The branches that are not picked see
-    parameters outside their domain -- a Normal prior's mean goes into
-    ``lgamma`` and ``log`` of the other branches -- and produce ``-inf`` or
-    NaN there.  The forward value is unaffected, but a gradient through
-    ``torch.where`` multiplies those by zero and gives NaN: the gradient
-    port must mask the inputs of each branch first.
+    coded one (weak priors give 0).  Where a slot has another code, its
+    branch sees ``a = b = x = 1`` instead of the slot's values, which lie in
+    every branch's domain: a Normal prior's mean never reaches ``lgamma``
+    or ``log``, so no branch gives ``-inf`` or NaN, and the gradient
+    through ``torch.where`` (zero times the unpicked branch) stays finite.
     """
     out = torch.zeros_like(x)
     for c, fn in _CODED_BRANCHES:
-        out = torch.where(code == c, fn(x, a, b), out)
+        pick = code == c
+        out = torch.where(
+            pick, fn(torch.where(pick, x, 1.0), torch.where(pick, a, 1.0),
+                     torch.where(pick, b, 1.0)), out)
     return out
 
 

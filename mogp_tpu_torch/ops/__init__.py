@@ -1,8 +1,9 @@
-"""Core math ops: kernels, factorizations, transforms.
+"""Core math ops: kernels, factorizations, transforms, the optimizer.
 
-The fused kernel-matrix build is the submodule ``ops.kernel_matrix``; it
-is not re-exported here, so that the module (with its ``launches``
-counter) and not its function answers to that name.
+The CUDA kernels' wrappers are the submodules ``ops.kernel_matrix`` (K1)
+and ``ops.cholesky_batched`` (K2); they are not re-exported here, so that
+each module (with its ``launches`` counter) and not its function answers
+to that name.  The batched L-BFGS is ``ops.lbfgs``.
 """
 
 from .cholesky import ChoFactor, cholesky_factor, fixed_cholesky, jit_cholesky

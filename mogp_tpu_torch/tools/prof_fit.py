@@ -1,0 +1,181 @@
+"""Where the MAP fit's time and memory go on one CUDA card.
+
+Run from the root of a checkout, on a machine with a CUDA card:
+
+    python3 -m mogp_tpu_torch.tools.prof_fit
+
+The problem is ``chip_smoke.py``'s phase 4: a 64-output ``MultiOutputGP``
+(n = 210, D = 14, ``nugget="adaptive"``, float32), fit by
+``fit_GP_MAP(n_tries=15, maxiter=50)`` after a warm-up fit from seed 0.
+It prints, one labelled line each:
+
+1. ``fit[k2]`` / ``fit[plain]``: four timed fits from seed 1, in the order
+   K2, plain, plain, K2, the plain ones with ``cholesky_batched_plain`` in
+   place of K2 inside the fit; with objective evaluations and lanes per
+   fit, K2 launches and the phase times.
+2. ``objective``: one value + gradient, and one value, at the 960 lanes
+   of the first race stage (CUDA events).
+3. ``memory``: peak device memory above the starting allocation, and the
+   same as (n, n) float32 matrices per lane, for one value + gradient at
+   960 lanes on the one-rung ("single") and the full jitter ladder, for a
+   3-iteration minimization of all 960 lanes on the full ladder (the
+   rescue path's chunk), and for the refit of the 64 winners
+   (``MultiOutputGP._fit_lanes``).  ``models/fitting.py``'s
+   ``_LANE_MATRICES`` is sized from these.
+4. ``profile``: ``torch.profiler`` tables of five evaluations and of one
+   whole fit; the fit's device time (the sum over device kernels), and
+   its busy share against the profiled fit's wall time and against the
+   mean of the unprofiled K2 fits above (the profiler slows the host).
+"""
+
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, ROOT)
+
+import mogp_tpu_torch  # noqa: E402
+from chip_smoke import MAXITER, N_OUTPUTS, N_TRIES, make_data, time_ms  # noqa: E402
+from mogp_tpu_torch.models import fitting  # noqa: E402
+from mogp_tpu_torch.models import gp as tgp  # noqa: E402
+from mogp_tpu_torch.ops import cholesky as tchol  # noqa: E402
+from mogp_tpu_torch.ops import cholesky_batched as kb  # noqa: E402
+
+
+def _peak_bytes(fn):
+    """Peak device memory allocated by ``fn()`` above what was allocated
+    before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("prof_fit: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print("card:", smi)
+    x, y = make_data(N_OUTPUTS)
+    mgp = mogp_tpu_torch.MultiOutputGP(x, y, nugget="adaptive", device="cuda")
+    np.random.seed(0)
+    mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=N_TRIES, maxiter=MAXITER)
+
+    calls = {"n": 0, "lanes": 0}
+    real_nlp = fitting.gp_nlp
+
+    def counting(raw, *args, **kwargs):
+        calls["n"] += 1
+        calls["lanes"] += raw.shape[0]
+        return real_nlp(raw, *args, **kwargs)
+
+    k2_seconds = []
+
+    def timed_fit(label):
+        torch.cuda.synchronize()
+        np.random.seed(1)
+        calls["n"] = calls["lanes"] = 0
+        kb.launches = 0
+        t0 = time.perf_counter()
+        mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=N_TRIES, refit=True, maxiter=MAXITER)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        nlp = np.mean([em.current_logpost for em in mgp.emulators])
+        print("fit[{}] {} s = {} fits/s; objective evaluations {} (lanes {}); K2 launches {}; "
+              "phases {}; mean NLP {}".format(label, dt, N_OUTPUTS / dt, calls["n"],
+                                               calls["lanes"], kb.launches,
+                                               fitting.last_phase_times, nlp), flush=True)
+        if label == "k2":
+            k2_seconds.append(dt)
+
+    fitting.gp_nlp = counting
+    real_chol = tchol.cholesky_batched
+    try:
+        for label in ("k2", "plain", "plain", "k2"):
+            tchol.cholesky_batched = real_chol if label == "k2" else kb.cholesky_batched_plain
+            timed_fit(label)
+    finally:
+        tchol.cholesky_batched = real_chol
+        fitting.gp_nlp = real_nlp
+
+    em0 = mgp.emulators[0]
+    n = em0.n
+    lanes = N_OUTPUTS * N_TRIES
+    data = tgp.cat_lanes([em._data for em in mgp.emulators])
+    data_all = tgp.take_lanes(data, torch.arange(N_OUTPUTS, device="cuda").repeat_interleave(N_TRIES))
+    np.random.seed(1)
+    starts = np.concatenate([em.priors.sample_n(N_TRIES) for em in mgp.emulators])
+    raw = em0._tensor(starts)
+
+    def value_grad(ladder):
+        r = raw.detach().requires_grad_(True)
+        f = tgp.gp_nlp(r, data_all, em0.kernel, "adaptive", sparse_ladder=ladder,
+                       progressive_ok=False)
+        (g,) = torch.autograd.grad(f.sum(), r)
+        return f, g
+
+    def value():
+        with torch.no_grad():
+            return tgp.gp_nlp(raw, data_all, em0.kernel, "adaptive", sparse_ladder="single",
+                              progressive_ok=False)
+
+    print("objective at {} lanes: value + gradient {} ms, value {} ms".format(
+        lanes, time_ms(lambda: value_grad("single"), reps=20), time_ms(value, reps=20)))
+
+    matrix = n * n * torch.finfo(em0._dtype).bits // 8
+    winners = [em.theta.get_data() for em in mgp.emulators]
+    for label, count, fn in (
+        ("value + gradient, single ladder", lanes, lambda: value_grad("single")),
+        ("value + gradient, full ladder", lanes, lambda: value_grad(False)),
+        ("3-iteration minimization, full ladder", lanes,
+         lambda: fitting._run_fit_chunked(mgp.emulators, starts.reshape(N_OUTPUTS, N_TRIES, -1),
+                                          3, None, None, False)),
+        ("refit of the winners", N_OUTPUTS,
+         lambda: mgp._fit_lanes(list(range(N_OUTPUTS)), winners)),
+    ):
+        peak = _peak_bytes(fn)
+        print("memory: {} at {} lanes: peak {} GB above the start = {} (n, n) matrices per "
+              "lane".format(label, count, peak / 1e9, peak / (count * matrix)), flush=True)
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            value_grad("single")
+        torch.cuda.synchronize()
+    print("profile: 5 evaluations at {} lanes".format(lanes))
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25,
+                                    max_name_column_width=60))
+
+    np.random.seed(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=N_TRIES, refit=True, maxiter=MAXITER)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in table
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    plain_wall_ms = 1e3 * float(np.mean(k2_seconds))
+    print("profile: one fit: wall {} ms, device time {} ms, device busy {} % of it, {} % of "
+          "the unprofiled fit's {} ms".format(wall_ms, device_ms, 100 * device_ms / wall_ms,
+                                             100 * device_ms / plain_wall_ms, plain_wall_ms))
+    print(table.table(sort_by="self_cuda_time_total", row_limit=25, max_name_column_width=60))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -50,6 +50,29 @@ def test_dist_logp_all_codes():
     assert np.all(got.numpy()[codes == 0] == 0.0)
 
 
+def test_dist_logp_gradient_mixed_codes():
+    """Value and gradient on a mixed Normal / LogNormal / Gamma / InvGamma /
+    weak vector: a branch that is not picked must not poison the gradient
+    (a Normal prior's mean is outside the Gamma branch's domain)."""
+    codes = np.array([1, 4, 0, 3, 2, 1, 3], dtype=np.int32)
+    a = np.array([0.0, 2.0, 1.0, 2.0, 0.8, -1.5, 0.7])
+    b = np.array([1.0, 1.5, 1.0, 1.2, 2.0, 0.5, 3.0])
+    x = np.array([0.5, 1.3, 2.0, 0.7, 1.1, 0.2, 2.5])
+    args = [jnp.asarray(v) for v in (codes, a, b)]
+
+    def total(xv):
+        return jnp.sum(jax.vmap(jpri.dist_logp)(*args, xv))
+
+    ref_val = np.asarray(jax.vmap(jpri.dist_logp)(*args, jnp.asarray(x)))
+    ref_grad = np.asarray(jax.grad(total)(jnp.asarray(x)))
+    xt = torch.as_tensor(x).requires_grad_(True)
+    val = tpri.dist_logp(torch.as_tensor(codes), torch.as_tensor(a), torch.as_tensor(b), xt)
+    (grad,) = torch.autograd.grad(val.sum(), xt)
+    assert np.isfinite(grad.numpy()).all()
+    assert_allclose(val.detach().numpy(), ref_val, rtol=RTOL, atol=ATOL)
+    assert_allclose(grad.numpy(), ref_grad, rtol=RTOL, atol=ATOL)
+
+
 _DISTS = [
     ("NormalPrior", (0.3, 1.5)),
     ("LogNormalPrior", (0.8, 2.0)),
