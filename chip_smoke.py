@@ -12,9 +12,14 @@ Phases (any failure raises, so the exit code is not 0):
 2. Every kernel against its plain PyTorch version on the card, at the
    bring-up shapes and at the shapes the main path gives it, in float32
    and float64, then timed against the plain version: K1, the fused
-   kernel-matrix build (2), and K2, the batched Cholesky (2b), on both
-   sides of its shared-memory bound (n = 340 in float32, 240 in float64)
-   and at n = 1000; every K2 call must launch the kernel once.
+   kernel-matrix build (2); K2, the batched Cholesky (2b), up to its
+   shared-memory bound (n = 340 in float32, 240 in float64), every call
+   launching K2 once; K3-K5, the blocked Cholesky variants v1-v3 (2c), above
+   that bound up to n = 8192 (the large-n fit's (1, 4096) and (1, 8192),
+   its MAP fit's (4, 4096) lanes, its float64 fit's (1, 4096)), with a
+   non-PD lane and a lane whose pivot fails mid-matrix (its ``info`` the
+   failing column), and on the ill-conditioned SqExp K of the n = 4096
+   problem at its realized jitter; every call one panel loop.
 3. The serving path at full width: a 64-output ``MultiOutputGP`` with
    n = 210 training points in D = 14 dimensions (``nugget="adaptive"``,
    float32 on the card) fit at seeded hyperparameters, then asked for
@@ -28,9 +33,22 @@ Phases (any failure raises, so the exit code is not 0):
    fit; the winners of the first 4 outputs, re-evaluated in float64, must
    be within 0.25 nats on average of the same seeded fit run by the port
    on the CPU in float64.
+5. The large-n GP (``benchmarks/benchmark_large_n.py``, ``bench.py``'s
+   ``large_n`` metric): one ``GaussianProcess`` (D = 8,
+   ``nugget="adaptive"``, float32), through ``tools/large_n.py`` at n =
+   4096 and 8192 (fit time, TFLOP/s, one value + gradient, one route
+   launch per progressive ladder rung), ``fit_GP_MAP`` with 4 restarts and
+   ``maxiter=20``, and a prediction at 10^5 seeded queries.  The float32 log
+   posterior must be within 1e-3 of the port's on the CPU in float64 at the
+   card's realized nugget, and the same fit in float64 on the card within
+   1e-9 of the CPU's.  No CUDA tensor may reach ``torch.linalg.cholesky_ex``
+   in this phase.
 
-Around each of phases 3 and 4 the kernels' launch counters are zeroed just
-before and read just after; every kernel of the path must have launched.
+Around each of phases 3, 4 and 5 the kernels' launch counters are zeroed
+just before and read just after; every kernel of the path must have
+launched (K1 in 3, K2 in 4, the routed blocked variant in 5).  The
+blocked variants the route does not take are checked and timed in 2c and
+listed with the launches they made in 5 (none) and ``"routed": false``.
 The last three lines of standard output are a JSON object describing each
 kernel, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
@@ -38,6 +56,7 @@ the script exits with a non-zero code and prints no result.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -141,7 +160,7 @@ def phase_kernels(km, main_shape):
 
     shapes = [(1, 50, 37, 3), (1, 130, 200, 14), (1, 5, 5, 1),
               (N_OUTPUTS, N_POINTS, 4096, N_DIM), main_shape]
-    main_err = 0.0
+    main_err = main_rel = 0.0
     for dtype in (torch.float32, torch.float64):
         rtol, atol = KERNEL_TOL[str(dtype).replace("torch.", "")]
         for seed, shape in enumerate(shapes):
@@ -161,7 +180,7 @@ def phase_kernels(km, main_shape):
                 if not ok:
                     raise AssertionError("kernel_matrix disagrees with its plain version")
                 if shape == main_shape and dtype == torch.float32 and base == "sqexp":
-                    main_err = max_abs
+                    main_err, main_rel = max_abs, max_rel
                 del K, P, err, args
         # Matern 5/2 is exactly 1 where r2 == 0
         x1, _, _, _ = kernel_inputs((1, 20, 20, 4), dtype, 99)
@@ -202,6 +221,7 @@ def phase_kernels(km, main_shape):
         "source": "mogp_tpu_torch/csrc/kernel_matrix.cu",
         "replaces": "mogp_tpu/ops/pallas_kernels.py:88",
         "max_abs_err": main_err,
+        "max_rel_err": main_rel,
         "ms": ms,
         "plain_ms": plain_ms,
     }
@@ -223,9 +243,11 @@ def spd_batch(B, n, dtype, seed):
 
 
 def _launch_once(kb, A):
-    """``cholesky_batched(A)``, checking that it launched the kernel once."""
+    """``cholesky_batched(A)``, checking that it launched K2 once."""
     import torch
 
+    if kb.route(A.shape[-1], A.dtype) != "k2":
+        raise AssertionError("phase 2b shape above K2's bound")
     before = kb.launches
     L = kb.cholesky_batched(A)
     torch.cuda.synchronize()
@@ -255,9 +277,9 @@ def _check_bad_lane(kb, A, label):
 
 
 def phase_cholesky(kb):
-    """K2 against its plain version, checked and timed, on both of its
-    paths (shared memory up to ``max_shared_n``, device memory above);
-    returns the kernel's record for the JSON line, without ``launches``."""
+    """K2 against its plain version, checked and timed, up to its bound
+    ``max_shared_n`` (larger n are phase 2c's); returns the kernel's record
+    for the JSON line, without ``launches``."""
     import numpy as np
     import torch
 
@@ -266,18 +288,13 @@ def phase_cholesky(kb):
     A = A @ np.transpose(A, (0, 2, 1)) + 40 * np.eye(40)
     A[1] = -np.eye(40)
     main = (960, N_POINTS)
-    main_err = 0.0
+    main_err = main_rel = 0.0
     for dtype in (torch.float32, torch.float64):
         name = str(dtype)[6:]
         tol = CHOL_TOL[name]
         bound = kb.max_shared_n(dtype)
         _check_bad_lane(kb, torch.as_tensor(A, dtype=dtype, device="cuda"), "(4, 40, 40)")
-        big = spd_batch(4, bound + 1, dtype, 98)
-        big[1] = -torch.eye(bound + 1, dtype=dtype, device="cuda")
-        _check_bad_lane(kb, big, "(4, {0}, {0}), device-memory path".format(bound + 1))
-        del big
-        shapes = [main, (384, N_POINTS), (N_OUTPUTS, 15), (16, 1), (8, bound), (8, bound + 1),
-                  (4, 1000)]
+        shapes = [main, (384, N_POINTS), (N_OUTPUTS, 15), (16, 1), (8, bound)]
         for seed, (B, n) in enumerate(shapes):
             A_ = spd_batch(B, n, dtype, seed)
             L = _launch_once(kb, A_)
@@ -285,20 +302,19 @@ def phase_cholesky(kb):
             err = _rel_err(L, P)
             upper0 = bool((torch.triu(L, 1) == 0).all())
             ok = err <= tol and upper0 and bool(torch.isfinite(L).all())
-            print("phase 2b: cholesky_batched {} ({}, {}, {}), {} path: rel err {} (limit {}), "
+            print("phase 2b: cholesky_batched {} ({}, {}, {}): rel err {} (limit {}), "
                   "max abs err {}, upper triangle zero {} {}".format(
-                      name, B, n, n, "shared-memory" if n <= bound else "device-memory", err,
-                      tol, (L - P).abs().max().item(), upper0, "ok" if ok else "FAIL"))
+                      name, B, n, n, err, tol, (L - P).abs().max().item(), upper0,
+                      "ok" if ok else "FAIL"))
             if not ok:
                 raise AssertionError("cholesky_batched disagrees with its plain version")
             if (B, n) == main and dtype == torch.float32:
-                main_err = (L - P).abs().max().item()
+                main_err, main_rel = (L - P).abs().max().item(), err
             del A_, L, P
 
     timings = {}
     for dtype in (torch.float32, torch.float64):
-        bound = kb.max_shared_n(dtype)
-        for B, n in (main, (384, N_POINTS), (N_OUTPUTS, bound + 1), (N_TRIES, 1000)):
+        for B, n in (main, (384, N_POINTS)):
             A_ = spd_batch(B, n, dtype, 7)
 
             def kern():
@@ -324,9 +340,303 @@ def phase_cholesky(kb):
         "source": "mogp_tpu_torch/csrc/cholesky_batched.cu",
         "replaces": "tools/pallas_cholesky_experiment.py:124",
         "max_abs_err": main_err,
+        "max_rel_err": main_rel,
         "ms": ms,
         "plain_ms": plain_ms,
     }
+
+
+# phase 2c: K3-K5 (tools/exp_chol.py) against cholesky_blocked_plain
+BLOCKED_REPLACES = {"v1": "tools/exp_chol.py:111", "v2": "tools/exp_chol.py:269",
+                    "v3": "tools/exp_chol.py:411"}
+BLOCKED_SHAPES = [((64, 341), "float32"), ((4, 241), "float64"), ((15, 1000), "float32"),
+                  ((15, 1000), "float64"), ((1, 4096), "float32"), ((1, 8192), "float32"),
+                  ((384, 341), "float32"), ((4, 4096), "float32"), ((1, 4096), "float64")]
+BLOCKED_MAIN = ((1, 4096), "float32")  # the factorization of the large-n slice, phase 5
+# the ill-conditioned K: a variant's error against the float64 factor may
+# be at most this multiple of cholesky_ex's own
+ILL_RATIO = 2.0
+
+# phase 5: the large-n GP (benchmarks/benchmark_large_n.py, bench.py:300-365)
+LARGE_N, LARGER_N, MAP_TRIES, MAP_MAXITER, LARGE_N_QUERIES = 4096, 8192, 4, 20, 10**5
+# float32 on the card against float64 on the CPU at the card's realized
+# nugget, and float64 on the card against float64 on the CPU
+LARGE_N_TOL = {"float32": 1e-3, "float64": 1e-9}
+
+
+def _blocked_once(kbl, A, variant):
+    """``cholesky_blocked_ex(A, variant)``, checking that it ran one panel
+    loop; returns ``(L, info)``."""
+    import torch
+
+    before = dict(kbl.launches)
+    L, info = kbl.cholesky_blocked_ex(A, variant)
+    torch.cuda.synchronize()
+    after = dict(kbl.launches)
+    before[variant] += 1
+    if after != before:
+        raise AssertionError("cholesky_blocked did not count one launch of {}".format(variant))
+    return L, info
+
+
+def _check_blocked(kbl, A, variant, label, bad=None):
+    """Variant against the plain version on ``A``: the lanes of ``bad``
+    (lane -> the 1-based column of its failing pivot) all NaN with that
+    ``info``, the others finite with ``info`` 0, upper triangle exactly
+    zero, within ``CHOL_TOL``.  Returns (rel err, max abs err)."""
+    import torch
+
+    bad = bad or {}
+    dtype = str(A.dtype)[6:]
+    tol = CHOL_TOL[dtype]
+    L, info = _blocked_once(kbl, A, variant)
+    P = kbl.cholesky_blocked_plain(A)
+    good = [i for i in range(A.shape[0]) if i not in bad]
+    err = _rel_err(L[good], P[good])
+    abs_err = (L[good] - P[good]).abs().max().item()
+    nan_ok = all(bool(torch.isnan(L[i]).all()) for i in bad)
+    want = [bad.get(i, 0) for i in range(A.shape[0])]
+    info_ok = info.tolist() == want
+    upper0 = bool((torch.triu(L[good], 1) == 0).all())
+    ok = (nan_ok and info_ok and upper0 and bool(torch.isfinite(L[good]).all())
+          and bool(torch.isfinite(P[good]).all()) and err <= tol)
+    print("phase 2c: cholesky_blocked {} {} {}: rel err {} (limit {}), max abs err {}, upper "
+          "triangle zero {}{}, info as expected {} {}".format(
+              variant, dtype, label, err, tol, abs_err, upper0,
+              ", lanes {} all NaN {} (info {})".format(
+                  sorted(bad), nan_ok, [info[i].item() for i in sorted(bad)]) if bad else "",
+              info_ok, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("cholesky_blocked {} disagrees with its plain version".format(variant))
+    return err, abs_err
+
+
+def _check_blocked_ill(kbl, K, variant, label):
+    """Variant against the float64 factor of the same float32 matrix ``K``,
+    whose condition (~1e7) leaves no two float32 factorizations within
+    ``CHOL_TOL`` of each other: its error must be within ``ILL_RATIO`` of
+    ``cholesky_ex``'s own, and its backward error max |L L^T - K| / max |K|
+    within ``CHOL_TOL``."""
+    import torch
+
+    L, _ = _blocked_once(kbl, K, variant)
+    P = kbl.cholesky_blocked_plain(K)
+    truth = kbl.cholesky_blocked_plain(K.double())
+    err, err_plain = _rel_err(L.double(), truth), _rel_err(P.double(), truth)
+    Ld = L.double()
+    back = ((Ld @ Ld.transpose(-1, -2) - K.double()).abs().max() / K.abs().max()).item()
+    tol = CHOL_TOL["float32"]
+    ok = (bool(torch.isfinite(L).all()) and bool(torch.isfinite(truth).all())
+          and err <= max(ILL_RATIO * err_plain, tol) and back <= tol)
+    print("phase 2c: cholesky_blocked {} float32 {}: rel err against the float64 factor {} "
+          "(cholesky_ex's {}, limit {}x that), vs cholesky_ex {}, backward error {} (limit {}) "
+          "{}".format(variant, label, err, err_plain, ILL_RATIO, _rel_err(L, P), back, tol,
+                      "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("cholesky_blocked {} loses accuracy on an ill-conditioned "
+                             "K".format(variant))
+
+
+def large_n_K(n):
+    """The SquaredExponential K (sigma^2 included) of the n-point large-n
+    problem at its raw theta, on the card in float32, with the jitter that
+    the port's fit on the card realizes for it; returns ``(K + jitter I,
+    jitter)``."""
+    import mogp_tpu_torch
+    from mogp_tpu_torch.tools.large_n import jittered_K, make_problem
+
+    x, y, theta = make_problem(n)
+    gp = mogp_tpu_torch.GaussianProcess(x, y, nugget="adaptive", device="cuda")
+    gp.fit(theta)
+    return jittered_K(gp, theta), gp.nugget
+
+
+def phase_blocked(kbl):
+    """K3-K5 against their plain version, checked and timed against
+    ``cholesky_ex``; returns one record per variant for the JSON line,
+    without ``launches``."""
+    import torch
+
+    errs = {}
+    for seed, ((B, n), dtype_name) in enumerate(BLOCKED_SHAPES):
+        dtype = getattr(torch, dtype_name)
+        A = spd_batch(B, n, dtype, 50 + seed)
+        bad = {}
+        if B >= 4:  # where the batch has room: a non-PD lane, and a lane
+            # whose pivot fails two thirds of the way down
+            A[1] = -torch.eye(n, dtype=dtype, device="cuda")
+            c = n - n // 3
+            A[3, c, c] = -A[3, c, c]
+            bad = {1: 1, 3: c + 1}
+        for variant in kbl.VARIANTS:
+            errs[(variant, (B, n), dtype_name)] = _check_blocked(
+                kbl, A, variant, "({}, {}, {})".format(B, n, n), bad)
+        del A
+        torch.cuda.empty_cache()
+    K, jitter = large_n_K(LARGE_N)
+    for variant in kbl.VARIANTS:
+        _check_blocked_ill(kbl, K, variant, "(1, {0}, {0}) SqExp K of the large-n problem + its "
+                           "realized jitter {1}".format(LARGE_N, jitter))
+    del K
+
+    timings = {}
+    for (B, n), dtype_name in BLOCKED_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        A = spd_batch(B, n, dtype, 7)
+        reps, warmup = (3, 1) if n >= LARGER_N else (10, 2) if n >= LARGE_N else (20, 3)
+
+        def timer(variant):
+            if variant == "plain":
+                return time_ms(lambda: kbl.cholesky_blocked_plain(A), reps, warmup)
+            return time_ms(lambda: kbl.cholesky_blocked(A, variant), reps, warmup)
+
+        order = ["plain", *kbl.VARIANTS, *reversed(kbl.VARIANTS), "plain"]
+        got = {}
+        for v in order:
+            got.setdefault(v, []).append(timer(v))
+        ms = {v: sum(t) / len(t) for v, t in got.items()}
+        flops = B * n**3 / 3
+        print("phase 2c: time ({}, {}, {}) {}: plain (cholesky_ex) {} ms {}; {}".format(
+            B, n, n, dtype_name, ms["plain"], got["plain"], "; ".join(
+                "{} {} ms {} = {} GFLOP/s".format(v, ms[v], got[v], flops / (ms[v] * 1e-3) / 1e9)
+                for v in kbl.VARIANTS)))
+        timings[((B, n), dtype_name)] = ms
+        del A
+        torch.cuda.empty_cache()
+    main = timings[BLOCKED_MAIN]
+    fastest = min(kbl.VARIANTS, key=lambda v: main[v])
+    print("phase 2c: fastest variant at {} {}: {}".format(*BLOCKED_MAIN, fastest))
+    return [{
+        "name": "cholesky_blocked_" + v,
+        "route": "cuda",
+        "source": "mogp_tpu_torch/csrc/cholesky_blocked.cu",
+        "replaces": BLOCKED_REPLACES[v],
+        "max_abs_err": errs[(v,) + BLOCKED_MAIN][1],
+        "max_rel_err": errs[(v,) + BLOCKED_MAIN][0],
+        "ms": main[v],
+        "plain_ms": main["plain"],
+    } for v in kbl.VARIANTS]
+
+
+class forbid_cholesky_ex_on_cuda:
+    """Within the block, ``torch.linalg.cholesky_ex`` / ``cholesky`` raise on
+    a CUDA tensor: the path must factor with the port's kernels."""
+
+    def __enter__(self):
+        import torch
+
+        self.saved = torch.linalg.cholesky_ex, torch.linalg.cholesky
+
+        def guard(fn):
+            def wrapped(A, *args, **kwargs):
+                if A.is_cuda:
+                    raise AssertionError("a CUDA tensor reached torch.linalg." + fn.__name__)
+                return fn(A, *args, **kwargs)
+            return wrapped
+
+        torch.linalg.cholesky_ex, torch.linalg.cholesky = (guard(f) for f in self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.linalg.cholesky_ex, torch.linalg.cholesky = self.saved
+        return False
+
+
+def _route_launches(kbl, variant, fn):
+    """Run ``fn()`` and return the launches of ``variant`` it made."""
+    before = kbl.launches[variant]
+    fn()
+    return kbl.launches[variant] - before
+
+
+def phase_large_n(mogp_tpu_torch, km, kb, kbl, label):
+    """The large-n GP slice (module doc, phase 5); returns the routed
+    blocked variant and the launches of each blocked variant in it."""
+    import numpy as np
+    import torch
+    from mogp_tpu_torch.tools import large_n
+
+    route = kb.route(LARGE_N, torch.float32)
+    if route != kb.route(LARGER_N, torch.float32) or route not in kbl.VARIANTS:
+        raise AssertionError("the large-n sizes are not routed to one blocked variant")
+    torch.cuda.synchronize()
+    km.launches = kb.launches = 0
+    for v in kbl.VARIANTS:
+        kbl.launches[v] = 0
+    with forbid_cholesky_ex_on_cuda():
+        x, y, theta = large_n.make_problem(LARGE_N)
+        rows = {}
+        for n, oracle in ((LARGE_N, True), (LARGER_N, False)):
+            row, g = large_n.measure(n, iters=3, oracle=oracle)
+            rows[n] = row
+            per_fit = _route_launches(kbl, route, lambda g=g: g.fit(theta))
+            print("phase 5: " + large_n.format_row(row) + "; {} launches of {} per fit ({} "
+                  "rungs) on {}".format(per_fit, route, row["rungs"], label))
+            if (per_fit != row["rungs"] or not np.isfinite(row["nlp"])
+                    or not row["valgrad_finite"]):
+                raise AssertionError("the large-n fit at n={} did not run one {} launch per "
+                                     "rung, or is not finite".format(n, route))
+            del g
+            torch.cuda.empty_cache()
+
+        # the MAP fit, seeded with numpy, 4 restarts as lanes
+        gp = mogp_tpu_torch.GaussianProcess(x, y, nugget="adaptive", device="cuda")
+        np.random.seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mogp_tpu_torch.fit_GP_MAP(gp, n_tries=MAP_TRIES, maxiter=MAP_MAXITER)
+        torch.cuda.synchronize()
+        map_s = time.perf_counter() - t0
+        print("phase 5: fit_GP_MAP n={}, {} restarts, maxiter={}: {} s, winner NLP {}, nugget {}, "
+              "theta {}".format(LARGE_N, MAP_TRIES, MAP_MAXITER, map_s, gp.current_logpost,
+                                gp.nugget, gp.theta.get_data().tolist()))
+        if not np.isfinite(gp.current_logpost):
+            raise AssertionError("the large-n MAP fit did not converge to a finite NLP")
+
+        q = np.random.RandomState(2).uniform(size=(LARGE_N_QUERIES, large_n.N_DIM))
+        k1_before = km.launches
+        t0 = time.perf_counter()
+        res = gp.predict(q)  # host arrays: the device work is done
+        predict_s = time.perf_counter() - t0
+        print("phase 5: predict {} points at n={}: {} s = {} points/s; K1 launches {}".format(
+            LARGE_N_QUERIES, LARGE_N, predict_s, LARGE_N_QUERIES / predict_s,
+            km.launches - k1_before))
+        if not (res.mean.shape == (LARGE_N_QUERIES,) and np.isfinite(res.mean).all()
+                and np.isfinite(res.unc).all() and (res.unc >= 0).all()):
+            raise AssertionError("the large-n prediction is not finite, or has a negative "
+                                 "variance")
+        if km.launches == k1_before:
+            raise AssertionError("the large-n prediction did not launch K1")
+
+        # float32 on the card against float64 on the CPU at the card's
+        # nugget (the tool's oracle); float64 on the card against float64
+        # on the CPU, both adaptive
+        row = rows[LARGE_N]
+        t0 = time.perf_counter()
+        g64 = mogp_tpu_torch.GaussianProcess(x, y, nugget="adaptive", device="cuda",
+                                             dtype=torch.float64)
+        g64.fit(theta)
+        lp64, nugget64 = large_n.cpu_logpost(x, y, theta)
+        rel64 = abs(g64.current_logpost - lp64) / abs(lp64)
+        ok = (row["nlp_rel_err"] <= LARGE_N_TOL["float32"] and rel64 <= LARGE_N_TOL["float64"]
+              and math.isclose(g64.nugget, nugget64, rel_tol=LARGE_N_TOL["float64"]))
+        print("phase 5: n={} logpost: float32 card {} vs float64 CPU at nugget {} fixed {}: rel "
+              "{} (limit {}); float64 card {} (nugget {}) vs float64 CPU {} (nugget {}): rel {} "
+              "(limit {}); float64 fits took {} s {}".format(
+                  LARGE_N, row["nlp"], row["nugget"], row["nlp_cpu64"], row["nlp_rel_err"],
+                  LARGE_N_TOL["float32"], g64.current_logpost, g64.nugget, lp64, nugget64, rel64,
+                  LARGE_N_TOL["float64"], time.perf_counter() - t0, "ok" if ok else "FAIL"))
+        if not ok:
+            raise AssertionError("the large-n log posterior disagrees with the float64 CPU")
+    torch.cuda.synchronize()
+    launches = dict(kbl.launches)
+    print("phase 5: launches K1 {}, K2 {}, blocked {} (the route: {})".format(
+        km.launches, kb.launches, launches, route))
+    if launches[route] == 0:
+        raise AssertionError("the routed blocked variant did not launch in phase 5")
+    return route, launches
 
 
 def phase_slice(mogp_tpu_torch, km, kb, label):
@@ -413,6 +723,7 @@ def phase_fit(mogp_tpu_torch, km, kb, label):
     import numpy as np
     import torch
     from mogp_tpu_torch.models import fitting
+    from mogp_tpu_torch.utils.metrics import fits_per_sec
 
     x, y = make_data(N_OUTPUTS)
     mgp = mogp_tpu_torch.MultiOutputGP(x, y, nugget="adaptive", device="cuda")
@@ -440,7 +751,7 @@ def phase_fit(mogp_tpu_torch, km, kb, label):
           "outputs fit {}; cholesky_batched launches {} (kernel_matrix {}); peak device "
           "memory {} GB".format(
               N_OUTPUTS, N_TRIES, N_POINTS, N_DIM, MAXITER, label, warm_s, fit_s,
-              n_fit / fit_s, phases, n_fit, launches, km_launches, peak / 1e9))
+              fits_per_sec(n_fit, fit_s), phases, n_fit, launches, km_launches, peak / 1e9))
     if n_fit != N_OUTPUTS:
         raise AssertionError("only {} of {} outputs were fit".format(n_fit, N_OUTPUTS))
     if launches <= 0:
@@ -481,6 +792,7 @@ def main():
     from mogp_tpu_torch.models.gp import _predict_tile_size
     from mogp_tpu_torch.ops import _build
     from mogp_tpu_torch.ops import cholesky_batched as kb
+    from mogp_tpu_torch.ops import cholesky_blocked as kbl
     from mogp_tpu_torch.ops import kernel_matrix as km
 
     if os.path.dirname(os.path.dirname(os.path.abspath(mogp_tpu_torch.__file__))) != here:
@@ -504,10 +816,15 @@ def main():
     main_shape = (N_OUTPUTS, N_POINTS, tile, N_DIM)
     record = phase_kernels(km, main_shape)
     chol_record = phase_cholesky(kb)
+    blocked_records = phase_blocked(kbl)
     record["launches"] = phase_slice(mogp_tpu_torch, km, kb, smi)
     chol_record["launches"] = phase_fit(mogp_tpu_torch, km, kb, smi)
+    route, blocked_launches = phase_large_n(mogp_tpu_torch, km, kb, kbl, smi)
+    for rec, v in zip(blocked_records, kbl.VARIANTS):
+        rec["launches"] = blocked_launches[v]
+        rec["routed"] = v == route
 
-    print(json.dumps({"kernels": [record, chol_record]}))
+    print(json.dumps({"kernels": [record, chol_record, *blocked_records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

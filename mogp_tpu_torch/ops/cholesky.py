@@ -9,16 +9,20 @@ Port of ``mogp_tpu/ops/cholesky.py``:
   sparse (3-rung) or single (1-rung) ladder instead.
 * ``cholesky_factor`` -- dispatch on the nugget type.
 
-Every factorization goes through K2, ``ops/cholesky_batched.py`` (the CUDA
-kernel on the card, its plain version on the CPU): a lane that is not
+Every factorization goes through ``ops/cholesky_batched.py``'s
+``cholesky_batched``, which routes by size (``route``): K2 up to n = 340
+in float32 / 240 in float64, the blocked K3-K5 (``ops/cholesky_blocked.py``)
+above, such as the large-n GP's progressive ladder.  On the card those are
+CUDA kernels, on the CPU their plain version.  A lane that is not
 positive definite gets an all-NaN factor, on the device and without a
 host sync.  A lane whose every candidate fails gets an all-NaN factor and
 a NaN jitter, which propagate to a NaN log posterior, as in the JAX
 package.
 
 Gradients: :func:`fixed_cholesky` is a ``torch.autograd.Function`` whose
-forward is K2 and whose backward is the Cholesky reverse rule in plain,
-differentiable torch (so it differentiates twice, for Hessians).
+forward is the routed kernel and whose backward is the Cholesky reverse
+rule in plain, differentiable torch (so it differentiates twice, for
+Hessians).
 ``jit_cholesky`` picks its jitter on a detached copy, and with
 ``reuse_factor`` returns the selected candidate through
 :func:`_chol_of_sum`, which has the same backward and costs no second
@@ -34,7 +38,7 @@ import torch
 
 from .cholesky_batched import cholesky_batched
 
-__all__ = ["ChoFactor", "fixed_cholesky", "jit_cholesky", "cholesky_factor"]
+__all__ = ["ChoFactor", "fixed_cholesky", "jit_cholesky", "jitter_ladder", "cholesky_factor"]
 
 # Above this n, ``jit_cholesky`` factorizes the jitter candidates one after
 # another and stops when every lane has one that factors, instead of
@@ -44,7 +48,8 @@ PROGRESSIVE_LADDER_MIN_N = 1024
 
 
 def _factor(A):
-    """K2 over any leading shape ``(..., n, n)``, outside autograd."""
+    """The routed Cholesky (K2 or blocked) over any leading shape ``(..., n,
+    n)``, outside autograd."""
     n = A.shape[-1]
     return cholesky_batched(A.reshape(A.shape[:-2].numel(), n, n).contiguous()).reshape(A.shape)
 
@@ -64,7 +69,8 @@ def _chol_bwd(L, L_bar):
 
 
 class _Cholesky(torch.autograd.Function):
-    """Lower Cholesky factor of ``A``: K2 forward, reverse rule backward."""
+    """Lower Cholesky factor of ``A``: the routed kernel forward, reverse
+    rule backward."""
 
     @staticmethod
     def forward(ctx, A):
@@ -165,6 +171,22 @@ def _finite(L):
     return torch.isfinite(L).flatten(-2).all(dim=-1)
 
 
+def jitter_ladder(A, maxtries=5, sparse_ladder=False):
+    """The jitter candidates ``(..., k)`` of :func:`jit_cholesky` for
+    ``A`` ``(..., n, n)`` (detached), in the order it tries them."""
+    dtype, device = A.dtype, A.device
+    mean_diag = torch.diagonal(A, dim1=-2, dim2=-1).mean(dim=-1)[..., None]
+    if sparse_ladder == "single":
+        return mean_diag * torch.tensor([1e-6], dtype=dtype, device=device)
+    if sparse_ladder:
+        return mean_diag * torch.tensor([0.0, 1e-6, 1e-2], dtype=dtype, device=device)
+    exponents = torch.pow(
+        torch.tensor(10.0, dtype=dtype, device=device),
+        torch.arange(maxtries, dtype=dtype, device=device),
+    )
+    return torch.cat([torch.zeros_like(mean_diag), mean_diag * 1e-6 * exponents], dim=-1)
+
+
 def jit_cholesky(A, maxtries=5, reuse_factor=True, sparse_ladder=False,
                  progressive_ok=True):
     """Jittered Cholesky of ``(..., n, n)``, per lane.
@@ -195,22 +217,12 @@ def jit_cholesky(A, maxtries=5, reuse_factor=True, sparse_ladder=False,
     n = A.shape[-1]
     dtype, device = A.dtype, A.device
     eye = torch.eye(n, dtype=dtype, device=device)
-    mean_diag = torch.diagonal(A_sg, dim1=-2, dim2=-1).mean(dim=-1)[..., None]
-    if sparse_ladder == "single":
-        jitters = mean_diag * torch.tensor([1e-6], dtype=dtype, device=device)
-    elif sparse_ladder:
-        jitters = mean_diag * torch.tensor([0.0, 1e-6, 1e-2], dtype=dtype, device=device)
-    else:
-        exponents = torch.pow(
-            torch.tensor(10.0, dtype=dtype, device=device),
-            torch.arange(maxtries, dtype=dtype, device=device),
-        )
-        jitters = torch.cat([torch.zeros_like(mean_diag), mean_diag * 1e-6 * exponents], dim=-1)
+    jitters = jitter_ladder(A_sg, maxtries, sparse_ladder)
     nan = torch.tensor(torch.nan, dtype=dtype, device=device)
 
     if progressive_ok and sparse_ladder is False and n >= PROGRESSIVE_LADDER_MIN_N:
         L_sel = torch.full_like(A_sg, torch.nan)
-        jitter = torch.full_like(mean_diag[..., 0], torch.nan)
+        jitter = torch.full_like(jitters[..., 0], torch.nan)
         done = torch.zeros_like(jitter, dtype=torch.bool)
         for k in range(jitters.shape[-1]):
             Lk = _factor(A_sg + jitters[..., k, None, None] * eye)

@@ -12,12 +12,13 @@ the training size, and the refit and the mean algebra go through it too.
   catch build or launch errors and never falls back to the plain version.
 * On a CPU tensor it calls :func:`cholesky_batched_plain`, which is what
   the CPU tests run.
-* **Two paths in the kernel, one launch either way.**  While the packed
-  lower triangle, ``n (n + 1) / 2`` elements, fits in one block's shared
-  memory (:data:`MAX_SHARED_BYTES`: n <= 340 in float32, n <= 240 in
-  float64, :func:`max_shared_n`), the matrix is factored there.  Larger
-  matrices are factored by the same column loop in device memory, with no
-  bound on n.
+* **The route.**  K2 factors a matrix in one block's shared memory, so it
+  takes n while the packed lower triangle, ``n (n + 1) / 2`` elements,
+  fits :data:`MAX_SHARED_BYTES` (n <= 340 in float32, n <= 240 in
+  float64, :func:`max_shared_n`).  Larger n go to the blocked
+  factorization (``ops/cholesky_blocked.py``, variant
+  :data:`BLOCKED_VARIANT`); :func:`route` is that choice, and
+  :data:`launches` counts K2's launches only.
 * ``n = 0`` or an empty batch returns an empty factor without a launch.
 """
 
@@ -28,7 +29,10 @@ import torch
 __all__ = [
     "cholesky_batched",
     "cholesky_batched_plain",
+    "cholesky_plain_ex",
     "max_shared_n",
+    "route",
+    "BLOCKED_VARIANT",
     "MAX_SHARED_BYTES",
     "launches",
 ]
@@ -40,39 +44,57 @@ launches = 0
 # largest packed triangle the kernel's shared-memory path holds
 MAX_SHARED_BYTES = 232_448
 
+# the blocked variant that takes n above K2's bound: the fastest of the
+# three at (1, 4096) float32 on an H100 (PERF.md, the K3-K5 timings)
+BLOCKED_VARIANT = "v2"
+
 _MAX_INT = 2**31 - 1
 
 
 def max_shared_n(dtype):
     """Largest n whose packed lower triangle fits :data:`MAX_SHARED_BYTES`:
-    the kernel's shared-memory path; larger n take its device-memory path."""
+    the largest n K2 takes (:func:`route`)."""
     words = MAX_SHARED_BYTES // (torch.finfo(dtype).bits // 8)
     return (math.isqrt(8 * words + 1) - 1) // 2
 
 
-def cholesky_batched_plain(A):
+def route(n, dtype):
+    """The kernel that factors ``(B, n, n)`` matrices of ``dtype`` on the
+    card: ``"k2"`` up to :func:`max_shared_n`, the blocked variant above."""
+    return "k2" if n <= max_shared_n(dtype) else BLOCKED_VARIANT
+
+
+def cholesky_plain_ex(A):
     """``torch.linalg.cholesky_ex`` with every lane whose ``info`` is not 0
-    set to NaN: the kernel's contract in plain torch."""
+    set to NaN, and ``info``: the Cholesky kernels' contract in plain
+    torch."""
     L, info = torch.linalg.cholesky_ex(A)
-    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, torch.nan))
+    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, torch.nan)), info
 
 
-def _check(A):
+def cholesky_batched_plain(A):
+    """The factors of :func:`cholesky_plain_ex`."""
+    return cholesky_plain_ex(A)[0]
+
+
+def check_square_batch(A):
+    """Raise unless ``A`` is a contiguous ``(B, n, n)`` float32 or float64
+    tensor with ``B`` within a 32-bit int: what the Cholesky kernels take."""
     if not isinstance(A, torch.Tensor):
         raise TypeError("A must be a torch.Tensor")
     if A.dtype not in (torch.float32, torch.float64):
-        raise TypeError("cholesky_batched takes float32 or float64, got {}".format(A.dtype))
+        raise TypeError("the Cholesky kernels take float32 or float64, got {}".format(A.dtype))
     if A.ndim != 3 or A.shape[1] != A.shape[2]:
         raise ValueError("A must be (B, n, n), got {}".format(tuple(A.shape)))
     if not A.is_contiguous():
         raise ValueError("A must be contiguous")
     if A.shape[0] > _MAX_INT:
-        raise ValueError("cholesky_batched batch must fit in a 32-bit int")
+        raise ValueError("the batch must fit in a 32-bit int")
 
 
 def cholesky_batched(A):
     """Lower Cholesky factors of ``A`` ``(B, n, n)``; see the module doc."""
-    _check(A)
+    check_square_batch(A)
     B, n, _ = A.shape
     if B == 0 or n == 0:
         return torch.empty_like(A)
@@ -81,6 +103,12 @@ def cholesky_batched(A):
     if A.device.type != "cuda":
         raise ValueError("cholesky_batched runs on CPU or CUDA, not {}".format(A.device))
 
+    kernel = route(n, A.dtype)
+    if kernel != "k2":
+        from .cholesky_blocked import cholesky_blocked
+
+        return cholesky_blocked(A, kernel)
+
     from ._build import library
 
     lib = library()
@@ -88,8 +116,7 @@ def cholesky_batched(A):
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mogp_cholesky_batched(
-            A.data_ptr(), out.data_ptr(), B, n, int(A.dtype == torch.float64),
-            int(n <= max_shared_n(A.dtype)), stream,
+            A.data_ptr(), out.data_ptr(), B, n, int(A.dtype == torch.float64), stream,
         )
     if err:
         raise RuntimeError(

@@ -1,4 +1,4 @@
-"""Utilities: checkpoints."""
+"""Utilities: checkpoints; timing, FLOP counts and profiling in ``utils.metrics``."""
 
 from .checkpoint import atomic_savez, load_gp, load_mogp, save_gp, save_mogp
 
