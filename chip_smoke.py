@@ -11,8 +11,11 @@ Phases (any failure raises, so the exit code is not 0):
    CUDA kernels from ``mogp_tpu_torch/csrc`` (``nvcc``, at first use).
 2. Every kernel against its plain PyTorch version on the card, at the
    bring-up shapes and at the shapes the main path gives it, in float32
-   and float64, then timed against the plain version: K1, the fused
-   kernel-matrix build (2); K2, the batched Cholesky (2b), up to its
+   and float64, then timed against the plain version and, for the
+   Cholesky kernels, against ``torch.linalg.cholesky_ex`` (in turns:
+   plain, library, kernel, kernel, library, plain), printing the ratio
+   kernel / ``cholesky_ex`` and the share of the bound (``bound_ms``): K1,
+   the fused kernel-matrix build (2); K2, the batched Cholesky (2b), up to its
    shared-memory bound (n = 340 in float32, 240 in float64), every call
    launching K2 once; K3-K5, the blocked Cholesky variants v1-v3 (2c), above
    that bound up to n = 8192 (the large-n fit's (1, 4096) and (1, 8192),
@@ -83,6 +86,27 @@ SLICE_TOL = {"mean": 5.6e-4, "unc": 4.1e-5, "logpost_rel": 2.7e-5}
 # ~sqrt(n) eps of |L|, about 2e-6 in float32 at n = 1000 (9.1e-7 measured
 # at n = 340 on an H100); the limits leave ten times that.
 CHOL_TOL = {"float32": 1e-5, "float64": 1e-12}
+
+# The card's peaks for the bound of each kernel (the least time the card
+# could take for the same work: the larger of its bytes over the memory rate
+# and its flops over the peak rate for their type), from the H100 SXM data
+# sheet: 3.35 TB/s of HBM3, 67 TFLOP/s in float32 (FMA) and in float64
+# (DMMA, the FP64 tensor cores).
+PEAK_BYTES_PER_S, PEAK_FLOPS = 3.35e12, 67e12
+
+
+def bound_ms(n_bytes, flops):
+    """``(ms, "bytes" or "operations")``: the larger of the two times."""
+    t_bytes, t_flops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
+
+
+def chol_bound_ms(B, n, dtype):
+    """The bound of a batched Cholesky of ``(B, n, n)``: the lower triangle
+    read, the whole factor written, ``n^3 / 3`` flops per matrix."""
+    size = 4 if str(dtype).endswith("float32") else 8
+    return bound_ms(B * (n * (n + 1) // 2 + n * n) * size, B * n**3 / 3)
+
 
 # phase 4: the MAP fit (bench.py:107-128) and its quality gate, the mean
 # NLP gap of the JAX package's own test (tests/test_fitting.py:144-146)
@@ -215,6 +239,13 @@ def phase_kernels(km, main_shape):
             del args
             torch.cuda.empty_cache()
     ms, plain_ms = timings[("float32", main_shape)]
+    L, n, m, D = main_shape
+    # inputs read once and K written once; per element 3 D flops for the
+    # scaled squared distance, and the exponential and sigma^2 as two
+    bound, bound_by = bound_ms(4 * (L * n * D + m * D + L * D + L + L * n * m),
+                               L * n * m * (3 * D + 2))
+    print("phase 2: kernel_matrix float32 {}: {} ms, bound {} ms ({}), {} of the bound".format(
+        main_shape, ms, bound, bound_by, bound / ms))
     record = {
         "name": "kernel_matrix",
         "route": "cuda",
@@ -224,6 +255,9 @@ def phase_kernels(km, main_shape):
         "max_rel_err": main_rel,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,  # no one PyTorch call computes this function
     }
     return record
 
@@ -323,17 +357,26 @@ def phase_cholesky(kb):
             def plain():
                 return kb.cholesky_batched_plain(A_)
 
-            p1, k1, k2, p2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
-            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            def library():
+                return torch.linalg.cholesky_ex(A_)
+
+            # in turns on one card: plain, library, kernel, kernel, library, plain
+            p1, l1, k1, k2, l2, p2 = (time_ms(f) for f in (plain, library, kern, kern, library,
+                                                            plain))
+            ms, plain_ms, lib_ms = (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
             flops = B * n**3 / 3
+            bound, bound_by = chol_bound_ms(B, n, dtype)
             print("phase 2b: time cholesky_batched {} ({}, {}, {}): kernel {} ms ({} {}), "
-                  "plain {} ms ({} {}); kernel {} GFLOP/s, {} us per matrix".format(
-                      str(dtype)[6:], B, n, n, ms, k1, k2, plain_ms, p1, p2,
-                      flops / (ms * 1e-3) / 1e9, ms * 1e3 / B))
-            timings[(str(dtype)[6:], B, n)] = (ms, plain_ms)
+                  "plain {} ms ({} {}), cholesky_ex {} ms ({} {}); kernel / cholesky_ex {}; "
+                  "bound {} ms ({}), kernel at {} of it; kernel {} GFLOP/s, {} us per "
+                  "matrix".format(
+                      str(dtype)[6:], B, n, n, ms, k1, k2, plain_ms, p1, p2, lib_ms, l1, l2,
+                      ms / lib_ms, bound, bound_by, bound / ms, flops / (ms * 1e-3) / 1e9,
+                      ms * 1e3 / B))
+            timings[(str(dtype)[6:], B, n)] = (ms, plain_ms, lib_ms, bound, bound_by)
             del A_
             torch.cuda.empty_cache()
-    ms, plain_ms = timings[("float32",) + main]
+    ms, plain_ms, lib_ms, bound, bound_by = timings[("float32",) + main]
     return {
         "name": "cholesky_batched",
         "route": "cuda",
@@ -343,6 +386,9 @@ def phase_cholesky(kb):
         "max_rel_err": main_rel,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": lib_ms,  # torch.linalg.cholesky_ex, the same function without the NaN mask
     }
 
 
@@ -488,19 +534,26 @@ def phase_blocked(kbl):
         def timer(variant):
             if variant == "plain":
                 return time_ms(lambda: kbl.cholesky_blocked_plain(A), reps, warmup)
+            if variant == "library":
+                return time_ms(lambda: torch.linalg.cholesky_ex(A), reps, warmup)
             return time_ms(lambda: kbl.cholesky_blocked(A, variant), reps, warmup)
 
-        order = ["plain", *kbl.VARIANTS, *reversed(kbl.VARIANTS), "plain"]
+        order = ["plain", "library", *kbl.VARIANTS, *reversed(kbl.VARIANTS), "library", "plain"]
         got = {}
         for v in order:
             got.setdefault(v, []).append(timer(v))
         ms = {v: sum(t) / len(t) for v, t in got.items()}
         flops = B * n**3 / 3
-        print("phase 2c: time ({}, {}, {}) {}: plain (cholesky_ex) {} ms {}; {}".format(
-            B, n, n, dtype_name, ms["plain"], got["plain"], "; ".join(
-                "{} {} ms {} = {} GFLOP/s".format(v, ms[v], got[v], flops / (ms[v] * 1e-3) / 1e9)
-                for v in kbl.VARIANTS)))
-        timings[((B, n), dtype_name)] = ms
+        bound, bound_by = chol_bound_ms(B, n, dtype)
+        print("phase 2c: time ({}, {}, {}) {}: plain {} ms {}, cholesky_ex {} ms {}; bound {} ms "
+              "({}); {}".format(
+                  B, n, n, dtype_name, ms["plain"], got["plain"], ms["library"], got["library"],
+                  bound, bound_by, "; ".join(
+                      "{} {} ms {} = {} GFLOP/s, / cholesky_ex {}, {} of the bound".format(
+                          v, ms[v], got[v], flops / (ms[v] * 1e-3) / 1e9, ms[v] / ms["library"],
+                          bound / ms[v])
+                      for v in kbl.VARIANTS)))
+        timings[((B, n), dtype_name)] = dict(ms, bound=bound, bound_by=bound_by)
         del A
         torch.cuda.empty_cache()
     main = timings[BLOCKED_MAIN]
@@ -515,6 +568,9 @@ def phase_blocked(kbl):
         "max_rel_err": errs[(v,) + BLOCKED_MAIN][0],
         "ms": main[v],
         "plain_ms": main["plain"],
+        "bound_ms": main["bound"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library"],  # torch.linalg.cholesky_ex
     } for v in kbl.VARIANTS]
 
 

@@ -1,11 +1,14 @@
 """Device and dtype policy for the PyTorch port.
 
 Counterpart of ``mogp_tpu/config.py:51-57``.  Every constructor in the
-port takes an explicit ``device=`` and ``dtype=``; when ``dtype`` is not
-given it follows the device:
+port takes ``device=`` and ``dtype=``.  The device defaults to the card
+(``"cuda"``): the port runs on the CPU only where the caller asks for it
+(``device="cpu"``, as the tests do), and when there is no card a default
+or explicit ``"cuda"`` raises; nothing falls back to the CPU.  When
+``dtype`` is not given it follows the device:
 
-* CPU: float64, where the parity tests against ``mogp_tpu`` run;
-* CUDA: float32, the production dtype of the JAX package.
+* CUDA: float32, the production dtype of the JAX package;
+* CPU: float64, where the parity tests against ``mogp_tpu`` run.
 
 Precision policy: TF32 is switched off for matmuls and cuDNN when this
 module is imported.  On the TPU, bf16 matmul passes destroyed the
@@ -26,12 +29,13 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device=None):
-    """``torch.device`` for a device argument; ``None`` means the CPU.
+    """``torch.device`` for a device argument; ``None`` means the card
+    (``"cuda"``).
 
-    Raises instead of falling back to the CPU when CUDA is asked for and
-    no CUDA device is available.
+    Raises instead of falling back to the CPU when CUDA is asked for, or
+    defaulted to, and no CUDA device is available.
     """
-    device = torch.device("cpu" if device is None else device)
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device {!r} requested but torch.cuda.is_available() is False".format(
@@ -42,5 +46,5 @@ def resolve_device(device=None):
 
 
 def default_dtype(device=None):
-    """float64 on the CPU, float32 on CUDA."""
+    """float32 on CUDA (the default device), float64 on the CPU."""
     return torch.float32 if resolve_device(device).type == "cuda" else torch.float64

@@ -1,10 +1,35 @@
 // Scalar helpers shared by the Cholesky kernels (cholesky_batched.cu,
 // cholesky_blocked.cu), overloaded for float and double so that each
-// kernel is one template.  IEEE throughout: no fast-math, no TF32.
+// kernel is one template.  No fast-math and no single-pass TF32; the one
+// approximate operation is dev_rsqrt, the pivot's reciprocal square root.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+// Phase stamps, for mogp_tpu_torch/tools/chol_phases.py only: it builds
+// these sources with -DMOGP_PHASE_STAMPS, and thread 0 of block 0 then adds
+// the clock64() cycles since its previous stamp to mogp_phase_cycles[i] at
+// MOGP_PHASE(i).  The slots: K2 0 load, 1 tile, 2 rows, 3 trailing update,
+// 4 store; the blocked diag step 0 load, 1 tiles, 2 rows, 3 trailing
+// update, 4 store; its rows step 8 load, 9 products, 10 substitutions, 11
+// store; its update 16 waiting for stages, 17 products, 18 epilogue.  In
+// the library's own build the macros are empty.
+#ifdef MOGP_PHASE_STAMPS
+__device__ long long mogp_phase_cycles[64];
+#define MOGP_PHASE_BEGIN() long long mogp_phase_last_ = clock64()
+#define MOGP_PHASE(i)                                                 \
+  do {                                                                \
+    if (threadIdx.x == 0 && blockIdx.x == 0) {                        \
+      const long long mogp_phase_now_ = clock64();                    \
+      mogp_phase_cycles[i] += mogp_phase_now_ - mogp_phase_last_;     \
+      mogp_phase_last_ = mogp_phase_now_;                             \
+    }                                                                 \
+  } while (0)
+#else
+#define MOGP_PHASE_BEGIN()
+#define MOGP_PHASE(i)
+#endif
 
 namespace mogp {
 
@@ -17,6 +42,19 @@ __device__ __forceinline__ bool good_pivot(double d) {
 }
 __device__ __forceinline__ float dev_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double dev_sqrt(double x) { return sqrt(x); }
+// 1 / sqrt(x): rsqrtf is within 2 ulp, rsqrt (double) within 1
+__device__ __forceinline__ float dev_rsqrt(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double dev_rsqrt(double x) { return rsqrt(x); }
+// four consecutive elements of shared memory, 16-byte aligned
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
+  const double2 q0 = reinterpret_cast<const double2*>(p)[0];
+  const double2 q1 = reinterpret_cast<const double2*>(p)[1];
+  v[0] = q0.x, v[1] = q0.y, v[2] = q1.x, v[3] = q1.y;
+}
 __device__ __forceinline__ float dev_nan(float) { return CUDART_NAN_F; }
 __device__ __forceinline__ double dev_nan(double) { return CUDART_NAN; }
 __device__ __forceinline__ float dev_fma(float a, float b, float c) { return fmaf(a, b, c); }

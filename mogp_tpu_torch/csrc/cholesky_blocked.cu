@@ -17,39 +17,72 @@
 // * variant 1, K3 (chol_blocked, :111): the panel is factored column by
 //   column with rank-1 steps;
 // * variant 2, K4 (chol_blocked_v2, :269): the panel is factored in
-//   rank-8 micro-panels, each applied to the rest of the panel with one
-//   rank-8 update;
+//   micro-panels (rank-8 on the TPU; 32 columns here, see below);
 // * variant 3, K5 (chol_blocked_v3, :411): 16-column micro-panels whose
 //   16 x 16 diagonal tile is factored and then inverted by Newton
 //   iteration, X <- X (2I - L X), 4 steps, so that the panel rows come
 //   from the product X M and all O(n^3) work is products.
 //
 // On an H100 one block cannot hold a matrix of this size, so each panel is
-// three launches over the batch, and the panel loop runs on the host
-// (n / 128 panels):
+// a few launches over the batch, and the panel loop runs on the host (n /
+// 128 panels):
 //
 // 1. diag (one block per matrix): the 128 x 128 diagonal block, in shared
-//    memory, factored by the variant's micro-panel scheme (micro-panel
-//    width MB = 1, 8 or 16).  A bad pivot sets the matrix's status word.
-// 2. rows (blocks of 32 rows x matrices): L21 = A21 L11^-T, the rows below
-//    the diagonal block, with the same micro-panels: each block holds L11
-//    and its 32 rows in shared memory; a warp owns each row, solves its MB
-//    columns (substitution, or the product with the stored inverse tile for
-//    variant 3) and applies them to the rest of the row with one rank-MB
-//    update.  Rows do not depend on each other: no block barrier.
-// 3. update (128 x 128 lower tiles x matrices, flattened into blockIdx.x):
-//    A22 -= L21 L21^T, shared by the variants.  Only tiles on or below the
+//    memory, factored by the variant's micro-panel scheme.  A bad pivot
+//    sets the matrix's status word.
+// 2. rows (blocks of rows x matrices): L21 = A21 L11^-T, the rows below
+//    the diagonal block.
+// 3. update (lower tiles x matrices, flattened into blockIdx.x): A22 -=
+//    L21 L21^T, shared by the variants.  Only tiles on or below the
 //    diagonal; within a diagonal tile only the lower triangle is written.
 //
-// What bounds it: the update carries almost all of the n^3 / 3 flops and
-// is a product with a depth of 128, so IEEE FP32 / FP64 FMA throughput
-// bounds it; each thread accumulates an 8 x 8 tile in registers from 16 x
-// 128 slices in shared memory (16 FMAs per 16-byte shared load).  No TF32 and no
-// tensor cores: ten-bit mantissas destroy K's conditioning.  The diag
-// step is one block per matrix and latency-bound on its barriers (three
-// per micro-panel; the tile is factored by one warp in registers), which is
-// where the variants differ: 384 barriers per panel for MB = 1, 48 for
-// MB = 8, 24 for MB = 16.
+// What bounds it, and what the design does about each bound.  The n^3 / 3
+// flops are almost all in the update (3): at n = 4096 they take 0.34 ms at
+// the card's 67 TFLOP/s (FP32 FMA; FP64 DMMA); the bytes, 0.03 ms, do not
+// bound it.  But the diag step (1) runs on one SM per matrix and is a chain
+// of barriers and dependent pivots, so on one large matrix its latency,
+// not the flops, was what the factorization waited on (54% of K4's time
+// at n = 4096 before this design).  So, for variant 2 (K4):
+//
+// * Latency of the diag step: blk_diag32_kernel factors the block in
+//   32-column micro-panels, 3 barriers each (12 per panel, not 48): one
+//   warp factors the 32 x 32 diagonal tile in registers (factor_tile: lane
+//   r holds row r; a pivot chain of one shuffle and one rsqrt per column,
+//   the column update off it), a thread per row solves the rows below it in
+//   registers, and all warps apply the rank-32 update of the block's
+//   trailing triangle on tensor cores.  The block comes in by cp.async.
+// * Serial dependence between panels: a look-ahead.  Update k is two
+//   launches, first the next panel's column block (in 32 x 128 tiles, many
+//   small blocks: it is on the critical path), then the rest (128 x 128);
+//   diag(k+1) and rows(k+1) run on a second, higher-priority stream as soon
+//   as the first launch is done, and overlap the rest of update k.  Events
+//   keep the order; the call returns on the caller's stream with everything
+//   done.
+// * Flops of the update: tensor cores.  blk_update_kernel stages operand
+//   tiles in a double-buffered shared ring with cp.async and accumulates A
+//   B^T with warp-level mma.sync (both operands K-major, as L21 L21^T
+//   gives): in float32 three TF32 passes, in float64 DMMA (IEEE FP64 FMA at
+//   twice the FP64 pipe's rate).
+// * The rows step (blk_rows32_kernel): micro-tile substitution, the
+//   products between micro-tiles on the same tensor-core path, the 32 x 32
+//   substitutions in registers.  No explicit inverse: at K's condition
+//   (~1e7) an inverse of L11 is not backward-stable.
+//
+// Why 3xTF32 keeps FP32 accuracy.  One TF32 pass rounds each operand to 10
+// mantissa bits (relative error 2^-11), which destroys K's conditioning
+// (config.py: TF32 stays off).  Here each float32 operand x is split into
+// hi = tf32(x) and lo = tf32(x - hi) (cvt.rna: round to nearest, ties
+// away); hi + lo equals x to 2^-22 relative.  Products of TF32 values are
+// exact in the FP32 accumulator, and hi*hi' + hi*lo' + lo*hi' misses only
+// lo*lo', ~2^-22 of the product: the error of an FP32 FMA.  The small terms
+// are accumulated first.  chip_smoke.py holds the result to the float64
+// factor of the ill-conditioned n = 4096 K, within 2x the error of
+// cholesky_ex in float32; tests/test_torch_tf32_split.py rehearses the same
+// arithmetic on the CPU, where one TF32 pass fails that rule.
+//
+// Variants 1 and 3 keep their own diag and rows steps (blk_diag_kernel,
+// blk_rows_kernel: micro-panel width MB = 1 or 16, 384 or 24 barriers per
+// panel) and share the update and the look-ahead loop.
 //
 // The NaN contract across launches: status[b] (int, zeroed by the caller)
 // is set by the diag step to the 1-based column of the failing pivot (the
@@ -63,31 +96,238 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <mutex>
+
 #include "chol_common.cuh"
 
 namespace {
 
 using mogp::dev_fma;
 using mogp::dev_nan;
-using mogp::dev_sqrt;
+using mogp::dev_rsqrt;
 using mogp::good_pivot;
+using mogp::load4;
 
 constexpr int kNB = 128;           // panel width
-constexpr int kLD = kNB + 1;       // shared row stride: column walks hit distinct banks
-constexpr int kRowTile = 32;       // rows of L21 per block of the rows step
+constexpr int kLD = kNB + 1;       // v1 / v3 row stride: column walks hit distinct banks
+constexpr int kLDS = kNB + 4;      // v2 row stride: fragment rows g, columns t hit banks 4g + t
+constexpr int kRowTile = 32;       // v1 / v3: rows of L21 per block of the rows step
+constexpr int kRowTile2 = 64;      // v2: rows of L21 per block of the rows step
+constexpr int kMP = 32;            // v2: micro-panel width
 constexpr int kDiagThreads = 512;  // the serial step: as many warps as help
 constexpr int kPanelThreads = 256;
-constexpr int kMaxMB = 16;         // widest micro-panel (variant 3)
-constexpr int kTM = 8;             // update: each thread owns kTM x kTM outputs
-constexpr int kBM = 16 * kTM;      // update tile, 128 x 128
-constexpr int kKC = 16;            // update: depth of one shared-memory slice
-constexpr int kUpdThreads = 256;
+constexpr int kMaxMB = 16;         // v3's micro-panel
+constexpr int kBM = 128;           // update tile, 128 x 128 (equal to the panel width)
+constexpr int kFirstBM = 32;       // rows of the update's tiles in the next panel's column block
+constexpr int kUpdThreads = 256;   // 8 warps, 2 x 4 over an update tile
 constexpr int kCopyThreads = 256;
 constexpr int kCopyElems = 1 << 16;  // elements per block of the copy passes
 
 __device__ __forceinline__ size_t mat_offset(int lane, int n) {
   return static_cast<size_t>(lane) * n * n;
 }
+
+// ---------------------------------------------------------------------------
+// Tensor-core products: acc += A B^T for A and B in shared memory, row-major
+// with the depth contiguous (K-major).  TC<T> is one mma tile:
+// float: m16n8k8 TF32 in three passes; double: m8n8k4 DMMA.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+template <typename T>
+struct TC;
+
+template <>
+struct TC<float> {
+  static constexpr int kM = 16, kN = 8, kK = 8, kC = 4;  // kC: accumulators per thread
+  struct FragA {
+    uint32_t hi[4], lo[4];
+  };
+  struct FragB {
+    uint32_t hi[2], lo[2];
+  };
+  static __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+  }
+  // A's fragment: rows g and g + 8, columns t and t + 4 of the tile at A
+  static __device__ __forceinline__ void load_a(FragA& f, const float* A, int ld) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    split(A[g * ld + t], f.hi[0], f.lo[0]);
+    split(A[(g + 8) * ld + t], f.hi[1], f.lo[1]);
+    split(A[g * ld + t + 4], f.hi[2], f.lo[2]);
+    split(A[(g + 8) * ld + t + 4], f.hi[3], f.lo[3]);
+  }
+  // B's fragment (B^T's columns are B's rows): row g, columns t and t + 4
+  static __device__ __forceinline__ void load_b(FragB& f, const float* B, int ld) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    split(B[g * ld + t], f.hi[0], f.lo[0]);
+    split(B[g * ld + t + 4], f.hi[1], f.lo[1]);
+  }
+  static __device__ __forceinline__ void mma1(float (&c)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4], const FragA& a, const FragB& b) {
+    mma1(c, a.lo, b.hi);  // the small terms first
+    mma1(c, a.hi, b.lo);
+    mma1(c, a.hi, b.hi);
+  }
+  // row and column, within the tile, of this thread's accumulator i
+  static __device__ __forceinline__ int row(int i) {
+    return ((threadIdx.x & 31) >> 2) + 8 * (i >> 1);
+  }
+  static __device__ __forceinline__ int col(int i) { return 2 * (threadIdx.x & 3) + (i & 1); }
+};
+
+template <>
+struct TC<double> {
+  static constexpr int kM = 8, kN = 8, kK = 4, kC = 2;
+  struct FragA {
+    double v;
+  };
+  struct FragB {
+    double v;
+  };
+  static __device__ __forceinline__ void load_a(FragA& f, const double* A, int ld) {
+    f.v = A[((threadIdx.x & 31) >> 2) * ld + (threadIdx.x & 3)];
+  }
+  static __device__ __forceinline__ void load_b(FragB& f, const double* B, int ld) {
+    f.v = B[((threadIdx.x & 31) >> 2) * ld + (threadIdx.x & 3)];
+  }
+  static __device__ __forceinline__ void mma(double (&c)[2], const FragA& a, const FragB& b) {
+    asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
+                 : "+d"(c[0]), "+d"(c[1])
+                 : "d"(a.v), "d"(b.v));
+  }
+  static __device__ __forceinline__ int row(int) { return (threadIdx.x & 31) >> 2; }
+  static __device__ __forceinline__ int col(int i) { return 2 * (threadIdx.x & 3) + i; }
+};
+
+// One warp: acc += A B^T over depth K (a multiple of TC<T>::kK) for a tile
+// of MI x NI mma tiles; A's rows (MI kM of them) and B's (NI kN) at row
+// strides lda and ldb.
+template <typename T, int MI, int NI>
+__device__ __forceinline__ void warp_mma(T (&acc)[MI][NI][TC<T>::kC], const T* A, int lda,
+                                         const T* B, int ldb, int K) {
+  using M = TC<T>;
+  for (int k = 0; k < K; k += M::kK) {
+    typename M::FragB fb[NI];
+#pragma unroll
+    for (int j = 0; j < NI; ++j) M::load_b(fb[j], B + j * M::kN * ldb + k, ldb);
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      typename M::FragA fa;
+      M::load_a(fa, A + i * M::kM * lda + k, lda);
+#pragma unroll
+      for (int j = 0; j < NI; ++j) M::mma(acc[i][j], fa, fb[j]);
+    }
+  }
+}
+
+template <typename T, int MI, int NI>
+__device__ __forceinline__ void zero_acc(T (&acc)[MI][NI][TC<T>::kC]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+#pragma unroll
+      for (int e = 0; e < TC<T>::kC; ++e) acc[i][j][e] = T(0);
+    }
+  }
+}
+
+// C -= acc for a warp tile whose corner is C (row stride ldc), on the
+// elements (r, c) of the tile with r < rows and c <= r + diag
+template <typename T, int MI, int NI>
+__device__ __forceinline__ void sub_acc(T* C, int ldc, const T (&acc)[MI][NI][TC<T>::kC],
+                                        int rows, int diag) {
+  using M = TC<T>;
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+#pragma unroll
+      for (int e = 0; e < M::kC; ++e) {
+        const int r = i * M::kM + M::row(e), c = j * M::kN + M::col(e);
+        if (r < rows && c <= r + diag) C[r * ldc + c] -= acc[i][j][e];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: global -> shared without registers; src_size 0 zero-fills
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// copies src_bytes (0 to BYTES) and zero-fills the rest of the BYTES
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  const int size = src_bytes;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(size)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "n"(BYTES), "r"(size)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows x kNB elements of M (row stride n) into S (row stride kLDS) by
+// cp.async, all in flight at once: 16 bytes a copy where M's rows are
+// 16-byte aligned, else one element.  Elements outside valid_rows x kNB,
+// and with LOWER those above the diagonal (zero in out), are zero-filled
+// without being read.  The caller commits and waits.
+template <typename T, int THREADS, bool LOWER>
+__device__ __forceinline__ void stage_rows(T* S, const T* M, int n, int rows, int valid_rows) {
+  constexpr int kE = 16 / sizeof(T);
+  const bool vec = reinterpret_cast<uintptr_t>(M) % 16 == 0 && n % kE == 0;
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * (kNB / kE); e += THREADS) {
+      const int r = e / (kNB / kE), c = e % (kNB / kE) * kE;
+      int elems = r < valid_rows ? kE : 0;
+      if (LOWER) elems = max(0, min(elems, r - c + 1));
+      cp_async<16>(S + r * kLDS + c, elems ? M + static_cast<size_t>(r) * n + c : M,
+                   elems * static_cast<int>(sizeof(T)));
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * kNB; e += THREADS) {
+      const int r = e / kNB, c = e % kNB;
+      const bool ok = r < valid_rows && (!LOWER || c <= r);
+      cp_async<sizeof(T)>(S + r * kLDS + c, ok ? M + static_cast<size_t>(r) * n + c : M,
+                          ok ? static_cast<int>(sizeof(T)) : 0);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Copy in and NaN out
+// ---------------------------------------------------------------------------
 
 // out = tril(A); upper triangle zero.  Grid: lanes x row chunks.
 template <typename T>
@@ -119,48 +359,75 @@ blk_finish_kernel(T* __restrict__ out, const int* __restrict__ status, int n, in
   }
 }
 
-// Factor the mb x mb diagonal tile D (row stride kLD) in place with rank-1
-// steps, by one warp: lane r holds row r in registers, and row c's entries
-// arrive by shuffles.  The reciprocals of its diagonal go to dinv.  Sets
-// *bad to the pivot's 1-based column in the tile and stops on a pivot that
-// is not positive and finite; every lane reads the same pivot, so the warp
-// exits together.
+// ---------------------------------------------------------------------------
+// Micro-panel building blocks
+// ---------------------------------------------------------------------------
+
+// Factor the mb x mb diagonal tile D (row stride LD) in place with rank-1
+// steps, by one warp: lane r holds row r in registers.  The pivots are a
+// serial chain, so step k keeps the chain short: r = 1/sqrt(d) by rsqrt,
+// column k scaled by r, and the next pivot d formed on lane k + 1 from its
+// own row and shuffled out.  The other columns are updated off the chain:
+// column k goes to the warp's 32-element scratch col and every lane reads
+// it back in 16-byte broadcasts.  The update is not masked: the entries of
+// a lane above its diagonal are never read back.  The reciprocals of the
+// diagonal go to dinv.  Sets *bad to the pivot's 1-based column in the tile
+// and stops on a pivot that is not positive and finite; every lane reads
+// the same pivot, so the warp exits together.
 //
 // INV (variant 3) then inverts the factored tile by Newton iteration from
 // X0 = diag(1 / d): X <- X (2I - L X), in registers (lane r holds row r of
 // X), into X (mb rows of kMaxMB).  The error I - L X is strictly lower
 // triangular and squares each step, so ceil(log2 16) = 4 steps are exact
 // in exact arithmetic (tools/exp_chol.py:313-327).
-template <typename T, int MB, bool INV>
-__device__ void factor_tile(T* D, T* dinv, T* X, int mb, int* bad) {
+template <typename T, int MB, bool INV, int LD>
+__device__ __forceinline__ void factor_tile(T* D, T* dinv, T* X, T* col, int mb, int* bad) {
   const int l = threadIdx.x % 32;
   T a[MB];
+  T inv_d = T(0);  // lane l: 1 / L[l][l]
 #pragma unroll
-  for (int k = 0; k < MB; ++k) a[k] = (l < mb && k <= l) ? D[l * kLD + k] : T(0);
+  for (int k = 0; k < MB; ++k) a[k] = (l < mb && k <= l) ? D[l * LD + k] : T(0);
+  T d = __shfl_sync(0xffffffffu, a[0], 0);
 #pragma unroll
   for (int k = 0; k < MB; ++k) {
     if (k >= mb) break;
-    const T d = __shfl_sync(0xffffffffu, a[k], k);
     if (!good_pivot(d)) {
       if (l == 0) *bad = k + 1;
       return;
     }
-    const T s = dev_sqrt(d);
-    a[k] = l == k ? s : l > k ? a[k] / s : a[k];
-#pragma unroll
-    for (int c = k + 1; c < MB; ++c) {
-      const T lck = __shfl_sync(0xffffffffu, a[k], c);  // L[c][k]
-      if (l >= c) a[c] = dev_fma(-a[k], lck, a[c]);
+    const T r = dev_rsqrt(d);
+    if (l == k) inv_d = r;
+    a[k] = l == k ? d * r : l > k ? a[k] * r : a[k];
+    if (k + 1 < MB) {  // lane k + 1's next pivot: the FMA the update below gives it
+      d = __shfl_sync(0xffffffffu, dev_fma(-a[k], a[k], a[k + 1 < MB ? k + 1 : k]), k + 1);
     }
+    col[l] = a[k];  // L[l][k] for l > k
+    __syncwarp();
+#pragma unroll
+    for (int c4 = 0; c4 < MB; c4 += 4) {
+      if (c4 + 3 <= k) continue;
+      T v[4];
+      load4(col + c4, v);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = c4 + q;
+        if (c > k && c < MB) a[c] = dev_fma(-a[k], v[q], a[c]);
+      }
+    }
+    __syncwarp();  // col is read before the next step writes it
   }
   if (l < mb) {
 #pragma unroll
     for (int k = 0; k < MB; ++k) {
-      if (k <= l) D[l * kLD + k] = a[k];
-      if (k == l) dinv[k] = T(1) / a[k];
+      if (k <= l) D[l * LD + k] = a[k];
     }
+    dinv[l] = inv_d;
   }
   if (INV) {
+#pragma unroll
+    for (int k = 0; k < MB; ++k) {
+      if (k > l) a[k] = T(0);  // row l of L, its upper part zero again
+    }
     T x[MB], p[MB];
 #pragma unroll
     for (int c = 0; c < MB; ++c) x[c] = (c == l && l < mb) ? T(1) / a[c] : T(0);
@@ -198,7 +465,7 @@ __device__ void factor_tile(T* D, T* dinv, T* X, int mb, int* bad) {
 // The rank-mb update of row R by the micro-panel (columns 0..mb of R and of
 // the rows C(c) = C0 + c * kLD): R[mb + c] -= sum_k v[k] C(c)[k] for c in
 // [0, cols) (cols <= 128), with v[k] = R[k] already in registers; one warp,
-// each lane four columns at once (independent FMA chains).
+// each lane four columns at once (independent FMA chains).  Variants 1, 3.
 template <typename T, int MB>
 __device__ __forceinline__ void rank_update_row(T* R, const T* C0, const T (&v)[MB], int mb,
                                                 int cols) {
@@ -228,7 +495,7 @@ __device__ __forceinline__ void rank_update_row(T* R, const T* C0, const T (&v)[
 
 // One row's mb micro-panel entries R[0..mb), times L_D^-T, into v:
 // forward substitution against the factored tile D with the reciprocals
-// dinv of its diagonal (variants 1, 2), or the product with its inverse X
+// dinv of its diagonal (variant 1), or the product with its inverse X
 // (variant 3).
 template <typename T, int MB, bool INV>
 __device__ __forceinline__ void solve_vals(const T* R, const T* D, const T* dinv, const T* X,
@@ -258,9 +525,33 @@ __device__ __forceinline__ void solve_vals(const T* R, const T* D, const T* dinv
   }
 }
 
-// Step 1: factor the diagonal block at (base, base), width w = min(128,
-// n - base), one block per matrix.  Variant 3 also leaves the inverse of
-// each 16 x 16 diagonal tile in inv (kNB x kMaxMB per matrix) for step 2.
+// Variant 2: R[0..32) <- R L_D^-T by one thread, in registers: forward
+// substitution against the factored 32 x 32 tile D (row stride kLDS), column
+// by column, so that the 31 - k updates of step k are independent FMAs.
+// Every thread of a warp reads the same D entry: broadcasts.
+template <typename T>
+__device__ __forceinline__ void subst_row32(T* R, const T* D, const T* dinv) {
+  T v[kMP];
+#pragma unroll
+  for (int k = 0; k < kMP; ++k) v[k] = R[k];
+#pragma unroll
+  for (int k = 0; k < kMP; ++k) {
+    v[k] *= dinv[k];
+#pragma unroll
+    for (int c = k + 1; c < kMP; ++c) v[c] = dev_fma(-v[k], D[c * kLDS + k], v[c]);
+  }
+#pragma unroll
+  for (int k = 0; k < kMP; ++k) R[k] = v[k];
+}
+
+// ---------------------------------------------------------------------------
+// Step 1: the diagonal block
+// ---------------------------------------------------------------------------
+
+// Variants 1 and 3: factor the diagonal block at (base, base), width w =
+// min(128, n - base), one block per matrix, in micro-panels of MB columns.
+// Variant 3 also leaves the inverse of each 16 x 16 diagonal tile in inv
+// (kNB x kMaxMB per matrix) for step 2.
 template <typename T, int MB, bool INV>
 __global__ void __launch_bounds__(kDiagThreads)
 blk_diag_kernel(T* __restrict__ out, int* __restrict__ status, T* __restrict__ inv, int n,
@@ -270,6 +561,7 @@ blk_diag_kernel(T* __restrict__ out, int* __restrict__ status, T* __restrict__ i
   T* dinv = S + kNB * kLD;                // kNB reciprocals of the diagonal
   T* Xi = dinv + kNB;                     // INV: kNB x kMaxMB
   __shared__ int bad;
+  __shared__ __align__(16) T col[32];     // factor_tile's column scratch
   const int lane = blockIdx.x;
   if (status[lane]) return;
   const int w = min(kNB, n - base);
@@ -288,7 +580,9 @@ blk_diag_kernel(T* __restrict__ out, int* __restrict__ status, T* __restrict__ i
   for (int j0 = 0; j0 < w; j0 += MB) {
     const int mb = min(MB, w - j0);
     T* D = S + j0 * kLD + j0;
-    if (t < 32) factor_tile<T, MB, INV>(D, dinv + j0, Xi + j0 * kMaxMB, mb, &bad);
+    if (t < 32) {
+      factor_tile<T, MB, INV, kLD>(D, dinv + j0, Xi + j0 * kMaxMB, col, mb, &bad);
+    }
     __syncthreads();
     if (bad) {  // read by every thread after the barrier: a uniform exit
       if (t == 0) status[lane] = base + j0 + bad;
@@ -326,8 +620,93 @@ blk_diag_kernel(T* __restrict__ out, int* __restrict__ status, T* __restrict__ i
   }
 }
 
-// Step 2: L21 = A21 L11^-T for the 32 rows of this block below a full
-// diagonal block (rows exist below a panel only when it is 128 wide).
+// Variant 2: the diagonal block in 32-column micro-panels, 3 barriers
+// each: (a) warp 0 factors the 32 x 32 tile in registers; (b) a thread per
+// row solves the rows of the block below it (up to 96); (c) all warps
+// apply the rank-32 update of the block's trailing lower triangle on
+// tensor cores, in 16 x 16 warp tiles.  Rows and columns past w are zero in
+// shared memory and never written back.
+// float: 512 threads; double: 256, so that the 32 doubles of a row of the
+// tile stay in registers (255 a thread, against 128 at 512 threads)
+template <typename T>
+struct Diag32 {
+  static constexpr int kThreads = sizeof(T) == 4 ? 512 : 256;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(Diag32<T>::kThreads)
+blk_diag32_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base) {
+  using M = TC<T>;
+  constexpr int kMI = 16 / M::kM, kNI = 16 / M::kN;
+  constexpr int kThreads = Diag32<T>::kThreads;
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* S = reinterpret_cast<T*>(smem_raw);  // kNB x kLDS
+  T* dinv = S + kNB * kLDS;               // kNB reciprocals of the diagonal
+  __shared__ int bad;
+  __shared__ __align__(16) T col[32];     // factor_tile's column scratch
+  MOGP_PHASE_BEGIN();
+  const int lane = blockIdx.x;
+  if (status[lane]) return;
+  const int w = min(kNB, n - base);
+  T* A = out + mat_offset(lane, n) + static_cast<size_t>(base) * n + base;
+  const int t = threadIdx.x;
+  const int warp = t / 32;
+  stage_rows<T, kThreads, true>(S, A, n, kNB, w);
+  cp_async_commit();
+  if (t == 0) bad = 0;
+  cp_async_wait<0>();
+  __syncthreads();
+  MOGP_PHASE(0);
+
+  for (int j0 = 0; j0 < w; j0 += kMP) {
+    const int mb = min(kMP, w - j0);
+    T* D = S + j0 * kLDS + j0;
+    if (warp == 0) factor_tile<T, kMP, false, kLDS>(D, dinv + j0, nullptr, col, mb, &bad);
+    __syncthreads();
+    MOGP_PHASE(1);
+    if (bad) {  // read by every thread after the barrier: a uniform exit
+      if (t == 0) status[lane] = base + j0 + bad;
+      return;
+    }
+    const int below = w - j0 - mb;  // > 0 only when mb == 32
+    if (below <= 0) break;
+    for (int r = t; r < below; r += kThreads) {
+      subst_row32<T>(S + (j0 + kMP + r) * kLDS + j0, D, dinv + j0);
+    }
+    __syncthreads();
+    MOGP_PHASE(2);
+    // C -= P P^T: C the trailing below x below block, P the rows just solved
+    const T* P = S + (j0 + kMP) * kLDS + j0;
+    T* C = S + (j0 + kMP) * kLDS + j0 + kMP;
+    const int nt = (below + 15) / 16;
+    for (int q = warp; q < nt * (nt + 1) / 2; q += kWarps) {
+      int ti = 0;
+      while ((ti + 1) * (ti + 2) / 2 <= q) ++ti;
+      const int tj = q - ti * (ti + 1) / 2;
+      T acc[kMI][kNI][M::kC];
+      zero_acc<T, kMI, kNI>(acc);
+      warp_mma<T, kMI, kNI>(acc, P + ti * 16 * kLDS, kLDS, P + tj * 16 * kLDS, kLDS, kMP);
+      sub_acc<T, kMI, kNI>(C + ti * 16 * kLDS + tj * 16, kLDS, acc, below - ti * 16,
+                           (ti - tj) * 16);
+    }
+    __syncthreads();
+    MOGP_PHASE(3);
+  }
+
+  for (int e = t; e < kNB * kNB; e += kThreads) {
+    const int r = e / kNB, c = e % kNB;
+    if (c <= r && r < w) A[static_cast<size_t>(r) * n + c] = S[r * kLDS + c];
+  }
+  MOGP_PHASE(4);
+}
+
+// ---------------------------------------------------------------------------
+// Step 2: the rows below the diagonal block
+// ---------------------------------------------------------------------------
+
+// Variants 1 and 3: L21 = A21 L11^-T for the 32 rows of this block below a
+// full diagonal block (rows exist below a panel only when it is 128 wide).
 template <typename T, int MB, bool INV>
 __global__ void __launch_bounds__(kPanelThreads)
 blk_rows_kernel(T* __restrict__ out, const int* __restrict__ status,
@@ -386,153 +765,385 @@ blk_rows_kernel(T* __restrict__ out, const int* __restrict__ status,
   }
 }
 
-// Four consecutive elements of shared memory (16-byte aligned for float;
-// two 16-byte loads for double).
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const double* p, double* v) {
-  const double2 q0 = reinterpret_cast<const double2*>(p)[0];
-  const double2 q1 = reinterpret_cast<const double2*>(p)[1];
-  v[0] = q0.x, v[1] = q0.y, v[2] = q1.x, v[3] = q1.y;
+// Variant 2: L21 = A21 L11^-T for the 64 rows of this block, micro-panel by
+// micro-panel: X[:, J] -= X[:, <J] L11[J, <J]^T on tensor cores (8 warps,
+// 16 x 16 tiles of the 64 x 32 block), then X[:, J] <- X[:, J] L11[J, J]^-T
+// by substitution, a thread per row.
+template <typename T>
+__global__ void __launch_bounds__(kPanelThreads)
+blk_rows32_kernel(T* __restrict__ out, const int* __restrict__ status, int n, int base,
+                  int tiles) {
+  using Mt = TC<T>;
+  constexpr int kMI = 16 / Mt::kM, kNI = 16 / Mt::kN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ls = reinterpret_cast<T*>(smem_raw);  // kNB x kLDS, L11
+  T* Xs = Ls + kNB * kLDS;                 // kRowTile2 x kLDS, this block's rows
+  T* dinv = Xs + kRowTile2 * kLDS;         // kNB reciprocals of L11's diagonal
+  MOGP_PHASE_BEGIN();
+  const int lane = blockIdx.x / tiles;
+  if (status[lane]) return;
+  const int r0 = base + kNB + (blockIdx.x % tiles) * kRowTile2;
+  const int rows = min(kRowTile2, n - r0);
+  T* M = out + mat_offset(lane, n);
+  const int t = threadIdx.x;
+  const int warp = t / 32;
+  const T* L11 = M + static_cast<size_t>(base) * n + base;
+  stage_rows<T, kPanelThreads, true>(Ls, L11, n, kNB, kNB);
+  stage_rows<T, kPanelThreads, false>(Xs, M + static_cast<size_t>(r0) * n + base, n, kRowTile2,
+                                      rows);
+  cp_async_commit();
+  if (t < kNB) dinv[t] = T(1) / L11[static_cast<size_t>(t) * n + t];
+  cp_async_wait<0>();
+  __syncthreads();
+  MOGP_PHASE(8);
+
+  const int tm = warp / 2, tn = warp % 2;  // this warp's 16 x 16 tile of the 64 x 32 block
+  for (int j0 = 0; j0 < kNB; j0 += kMP) {
+    if (j0 > 0) {
+      T acc[kMI][kNI][Mt::kC];
+      zero_acc<T, kMI, kNI>(acc);
+      warp_mma<T, kMI, kNI>(acc, Xs + tm * 16 * kLDS, kLDS, Ls + (j0 + tn * 16) * kLDS, kLDS,
+                            j0);
+      sub_acc<T, kMI, kNI>(Xs + tm * 16 * kLDS + j0 + tn * 16, kLDS, acc, 16, 16);
+      __syncthreads();
+      MOGP_PHASE(9);
+    }
+    for (int r = t; r < rows; r += kPanelThreads) {
+      subst_row32<T>(Xs + r * kLDS + j0, Ls + j0 * kLDS + j0, dinv + j0);
+    }
+    __syncthreads();
+    MOGP_PHASE(10);
+  }
+
+  for (int e = t; e < rows * kNB; e += kPanelThreads) {
+    const int r = e / kNB, c = e % kNB;
+    M[static_cast<size_t>(r0 + r) * n + base + c] = Xs[r * kLDS + c];
+  }
+  MOGP_PHASE(11);
 }
 
-// Step 3: A22 -= L21 L21^T over the lower 128 x 128 tile pairs (I >= J) of
-// the trailing matrix, which starts at row and column base + 128.  Thread
-// (ty, tx) of 16 x 16 owns rows ty*4 + {0..3} and 64 + ty*4 + {0..3} of the
-// tile, and the same columns with tx: per step of the depth it loads 4 x 4
-// consecutive values from shared memory and does 64 FMAs.
-// float: two blocks per SM (registers capped at 128) with the next slice
-// prefetched into registers; double: one block, no prefetch (its 8 x 8
-// accumulators alone take 128 registers)
-template <typename T>
-struct UpdateCfg {
-  static constexpr int kMinBlocks = sizeof(T) == 4 ? 2 : 1;
-  static constexpr bool kPrefetch = sizeof(T) == 4;
+// ---------------------------------------------------------------------------
+// Step 3: the trailing update on tensor cores
+// ---------------------------------------------------------------------------
+
+// float: a 32-deep stage (4 per panel); double: 16 deep (8 per panel).  The
+// stage row stride is 4 past the depth: fragment loads hit distinct banks.
+// BM rows of L21 against 128: BM = 128 for the bulk of the update, two
+// blocks per SM in float and one in double (its 64 accumulators take 128
+// registers); BM = 32 for the first column block, which is on the panel
+// loop's critical path: four times the blocks, each a quarter of the work.
+template <typename T, int BM>
+struct UpdCfg {
+  static constexpr int kKC = sizeof(T) == 4 ? 32 : 16;
+  static constexpr int kLd = kKC + 4;
+  static constexpr int kWM = BM / 2;  // 2 x 4 warps of kWM x 32
+  static constexpr int kMI = kWM / TC<T>::kM;
+  static constexpr int kNI = 32 / TC<T>::kN;
+  static constexpr int kMinBlocks = sizeof(T) == 4 || BM < kBM ? 2 : 1;
+  static constexpr int kStageA = BM * kLd;   // one stage of each operand
+  static constexpr int kStageB = kBM * kLd;
+  static constexpr size_t kSmem = 2 * (kStageA + kStageB) * sizeof(T);  // 2 stages
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kUpdThreads, UpdateCfg<T>::kMinBlocks)
-blk_update_kernel(T* __restrict__ out, const int* __restrict__ status, int n, int base,
-                  int pairs) {
-  constexpr int kPad = kBM + 4;  // keeps each row of the slices 16-byte aligned
-  constexpr int kLoads = kBM * kKC / kUpdThreads;
-  __shared__ __align__(16) T As[kKC][kPad];
-  __shared__ __align__(16) T Bs[kKC][kPad];
-  const int lane = blockIdx.x / pairs;
-  if (status[lane]) return;
-  const int p = blockIdx.x % pairs;
-  int I = static_cast<int>((sqrtf(8.0f * p + 1.0f) - 1.0f) * 0.5f);
-  while (I * (I + 1) / 2 > p) --I;
-  while ((I + 1) * (I + 2) / 2 <= p) ++I;
-  const int J = p - I * (I + 1) / 2;
-  const int t0 = base + kNB;
-  const int I0 = t0 + I * kBM, J0 = t0 + J * kBM;
-  const T* M = out + mat_offset(lane, n);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  // this thread's share of each slice: depth kk = tid % kKC, rows m
-  const int kk_ld = tid % kKC, m_ld = tid / kKC;
-  constexpr int kRowStep = kUpdThreads / kKC;
-
-  T ra[kLoads], rb[kLoads];
-  auto fetch = [&](int k0) {
+// Stage ROWS rows x kKC columns of the matrix M (rows row0.., columns k0..)
+// into S (row stride kLd) with cp.async; rows past n are zero-filled.  VEC:
+// 16-byte copies (rows 16-byte aligned, n a multiple of 16 / sizeof(T));
+// otherwise one copy per element.
+template <typename T, int ROWS, bool VEC>
+__device__ __forceinline__ void upd_stage(T* S, const T* M, int n, int row0, int k0) {
+  using C = UpdCfg<T, kBM>;
+  constexpr int kE = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int kPerRow = C::kKC / kE;
+  constexpr int kChunks = ROWS * kPerRow / kUpdThreads;
 #pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int m = m_ld + i * kRowStep;
-      const int ri = I0 + m, rj = J0 + m;
-      ra[i] = ri < n ? M[static_cast<size_t>(ri) * n + base + k0 + kk_ld] : T(0);
-      rb[i] = rj < n ? M[static_cast<size_t>(rj) * n + base + k0 + kk_ld] : T(0);
-    }
-  };
-
-  T acc[kTM][kTM];
+  for (int i = 0; i < kChunks; ++i) {
+    const int ch = threadIdx.x + i * kUpdThreads;
+    const int r = ch / kPerRow, q = (ch % kPerRow) * kE;
+    const bool ok = row0 + r < n;
+    const T* src = ok ? M + static_cast<size_t>(row0 + r) * n + k0 + q : M;
+    T* dst = S + r * C::kLd + q;
+    if constexpr (VEC) {
+      cp_async<16>(dst, src, ok ? 16 : 0);
+    } else {
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTM; ++j) acc[i][j] = T(0);
-  }
-  if (UpdateCfg<T>::kPrefetch) fetch(0);
-  for (int k0 = 0; k0 < kNB; k0 += kKC) {
-    if (!UpdateCfg<T>::kPrefetch) fetch(k0);
-#pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      As[kk_ld][m_ld + i * kRowStep] = ra[i];
-      Bs[kk_ld][m_ld + i * kRowStep] = rb[i];
-    }
-    __syncthreads();
-    if (UpdateCfg<T>::kPrefetch && k0 + kKC < kNB) fetch(k0 + kKC);
-#pragma unroll
-    for (int kk = 0; kk < kKC; ++kk) {
-      T a[kTM], b[kTM];
-      load4(&As[kk][ty * 4], a);
-      load4(&As[kk][64 + ty * 4], a + 4);
-      load4(&Bs[kk][tx * 4], b);
-      load4(&Bs[kk][64 + tx * 4], b + 4);
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-        for (int j = 0; j < kTM; ++j) acc[i][j] = dev_fma(a[i], b[j], acc[i][j]);
+      for (int e = 0; e < kE; ++e) {
+        cp_async<sizeof(T)>(dst + e, ok ? src + e : M, ok ? static_cast<int>(sizeof(T)) : 0);
       }
-    }
-    __syncthreads();
-  }
-  T* Mw = out + mat_offset(lane, n);
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = I0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (r >= n) continue;
-#pragma unroll
-    for (int j = 0; j < kTM; ++j) {
-      const int c = J0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (c <= r) Mw[static_cast<size_t>(r) * n + c] -= acc[i][j];
     }
   }
 }
+
+// A22 -= L21 L21^T over the lower tile pairs (I >= J) of the trailing
+// matrix, which starts at row and column base + 128; tiles are BM rows by
+// 128 columns.  BM = kFirstBM: the tiles (I, 0), the next panel's column
+// block; BM = 128: the tiles with J >= 1.  Eight warps of BM / 2 x 32;
+// a warp tile above the diagonal only takes part in the staging, and a
+// 128 x 128 diagonal tile stages one operand for both.
+template <typename T, int BM, bool VEC>
+__global__ void __launch_bounds__(kUpdThreads, UpdCfg<T, BM>::kMinBlocks)
+blk_update_kernel(T* __restrict__ out, const int* __restrict__ status, int n, int base,
+                  int tiles) {
+  using C = UpdCfg<T, BM>;
+  using Mt = TC<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* As = reinterpret_cast<T*>(smem_raw);  // [2][BM][kLd]
+  T* Bs = As + 2 * C::kStageA;             // [2][kBM][kLd]
+  MOGP_PHASE_BEGIN();
+  const int lane = blockIdx.x / tiles;
+  if (status[lane]) return;
+  const int p = blockIdx.x % tiles;
+  int I, J;
+  if (BM == kFirstBM) {
+    I = p;
+    J = 0;
+  } else {  // p-th lower pair of the trailing tiles without the first column block
+    int i = static_cast<int>((sqrtf(8.0f * p + 1.0f) - 1.0f) * 0.5f);
+    while (i * (i + 1) / 2 > p) --i;
+    while ((i + 1) * (i + 2) / 2 <= p) ++i;
+    I = i + 1;
+    J = p - i * (i + 1) / 2 + 1;
+  }
+  const int t0 = base + kNB;
+  const int I0 = t0 + I * BM, J0 = t0 + J * kBM;
+  T* M = out + mat_offset(lane, n);
+  const bool same = BM == kBM && I == J;
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const bool idle = J0 + wn * 32 > I0 + wm * C::kWM + C::kWM - 1;  // above the diagonal
+
+  T acc[C::kMI][C::kNI][Mt::kC];
+  zero_acc<T, C::kMI, C::kNI>(acc);
+  constexpr int kStages = kNB / C::kKC;
+  upd_stage<T, BM, VEC>(As, M, n, I0, base);
+  if (!same) upd_stage<T, kBM, VEC>(Bs, M, n, J0, base);
+  cp_async_commit();
+#pragma unroll 1
+  for (int s = 0; s < kStages; ++s) {
+    if (s + 1 < kStages) {
+      const int nxt = (s + 1) & 1;
+      upd_stage<T, BM, VEC>(As + nxt * C::kStageA, M, n, I0, base + (s + 1) * C::kKC);
+      if (!same) {
+        upd_stage<T, kBM, VEC>(Bs + nxt * C::kStageB, M, n, J0, base + (s + 1) * C::kKC);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    MOGP_PHASE(16);
+    const T* a = As + (s & 1) * C::kStageA;
+    const T* b = same ? a : Bs + (s & 1) * C::kStageB;
+    if (!idle) {
+      warp_mma<T, C::kMI, C::kNI>(acc, a + wm * C::kWM * C::kLd, C::kLd, b + wn * 32 * C::kLd,
+                                  C::kLd, C::kKC);
+    }
+    __syncthreads();
+    MOGP_PHASE(17);
+  }
+  if (idle) return;
+  // A22 -= acc: every load first, then every store (interleaved, each load
+  // would wait for the store before it, which the compiler cannot prove apart)
+#pragma unroll
+  for (int i = 0; i < C::kMI; ++i) {
+#pragma unroll
+    for (int j = 0; j < C::kNI; ++j) {
+#pragma unroll
+      for (int e = 0; e < Mt::kC; ++e) {
+        const int r = I0 + wm * C::kWM + i * Mt::kM + Mt::row(e);
+        const int c = J0 + wn * 32 + j * Mt::kN + Mt::col(e);
+        if (r < n && c <= r) acc[i][j][e] = M[static_cast<size_t>(r) * n + c] - acc[i][j][e];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < C::kMI; ++i) {
+#pragma unroll
+    for (int j = 0; j < C::kNI; ++j) {
+#pragma unroll
+      for (int e = 0; e < Mt::kC; ++e) {
+        const int r = I0 + wm * C::kWM + i * Mt::kM + Mt::row(e);
+        const int c = J0 + wn * 32 + j * Mt::kN + Mt::col(e);
+        if (r < n && c <= r) M[static_cast<size_t>(r) * n + c] = acc[i][j][e];
+      }
+    }
+  }
+  MOGP_PHASE(18);
+}
+
+// ---------------------------------------------------------------------------
+// The panel loop with look-ahead
+// ---------------------------------------------------------------------------
 
 bool grid_ok(long long blocks) { return blocks >= 1 && blocks <= 0x7fffffffLL; }
 
-template <typename T, int MB, bool INV>
-int run(const T* a, T* out, int* status, T* inv, int batch, int n, cudaStream_t s) {
-  const size_t diag_smem =
-      (static_cast<size_t>(kNB) * kLD + kNB + (INV ? kNB * kMaxMB : 0)) * sizeof(T);
-  const size_t rows_smem =
-      (static_cast<size_t>(kNB + kRowTile) * kLD + kNB + (INV ? kNB * kMaxMB : 0)) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(blk_diag_kernel<T, MB, INV>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(diag_smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(blk_rows_kernel<T, MB, INV>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(rows_smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+// The side stream of the look-ahead and its two events, one set per device,
+// made at first use and kept for the process.  The lock also keeps the
+// enqueue of one factorization from interleaving with another's.
+struct Side {
+  cudaStream_t stream = nullptr;
+  cudaEvent_t ready = nullptr;  // main -> side: the next panel's column block is updated
+  cudaEvent_t done = nullptr;   // side -> main: its diag and rows steps are done
+};
+constexpr int kMaxDevices = 64;
+Side g_side[kMaxDevices];
+std::mutex g_mutex;
 
+cudaError_t side_of_current_device(Side** out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  Side& sd = g_side[dev];
+  if (sd.stream == nullptr) {
+    int least = 0, greatest = 0;
+    err = cudaDeviceGetStreamPriorityRange(&least, &greatest);
+    if (err != cudaSuccess) return err;
+    cudaStream_t s = nullptr;
+    err = cudaStreamCreateWithPriority(&s, cudaStreamNonBlocking, greatest);
+    if (err != cudaSuccess) return err;
+    err = cudaEventCreateWithFlags(&sd.ready, cudaEventDisableTiming);
+    if (err != cudaSuccess) return err;
+    err = cudaEventCreateWithFlags(&sd.done, cudaEventDisableTiming);
+    if (err != cudaSuccess) return err;
+    sd.stream = s;
+  }
+  *out = &sd;
+  return cudaSuccess;
+}
+
+template <typename T, int V>
+struct Steps {
+  static constexpr int kMB = V == 1 ? 1 : 16;  // v1 / v3 micro-panel (v2's is kMP)
+  static constexpr bool kInv = V == 3;
+  static constexpr size_t kDiagSmem =
+      V == 2 ? (static_cast<size_t>(kNB) * kLDS + kNB) * sizeof(T)
+             : (static_cast<size_t>(kNB) * kLD + kNB + (kInv ? kNB * kMaxMB : 0)) * sizeof(T);
+  static constexpr size_t kRowsSmem =
+      V == 2 ? (static_cast<size_t>(kNB + kRowTile2) * kLDS + kNB) * sizeof(T)
+             : (static_cast<size_t>(kNB + kRowTile) * kLD + kNB + (kInv ? kNB * kMaxMB : 0)) *
+                   sizeof(T);
+  static constexpr int kRowsPer = V == 2 ? kRowTile2 : kRowTile;
+
+  static cudaError_t prepare() {
+    cudaError_t err;
+    if constexpr (V == 2) {
+      err = cudaFuncSetAttribute(blk_diag32_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kDiagSmem));
+      if (err != cudaSuccess) return err;
+      err = cudaFuncSetAttribute(blk_rows32_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kRowsSmem));
+    } else {
+      err = cudaFuncSetAttribute(blk_diag_kernel<T, kMB, kInv>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kDiagSmem));
+      if (err != cudaSuccess) return err;
+      err = cudaFuncSetAttribute(blk_rows_kernel<T, kMB, kInv>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kRowsSmem));
+    }
+    if (err != cudaSuccess) return err;
+    using UpdateFn = void (*)(T*, const int*, int, int, int);
+    const UpdateFn updates[4] = {blk_update_kernel<T, kBM, true>, blk_update_kernel<T, kBM, false>,
+                                 blk_update_kernel<T, kFirstBM, true>,
+                                 blk_update_kernel<T, kFirstBM, false>};
+    const size_t smem[4] = {UpdCfg<T, kBM>::kSmem, UpdCfg<T, kBM>::kSmem,
+                            UpdCfg<T, kFirstBM>::kSmem, UpdCfg<T, kFirstBM>::kSmem};
+    for (int i = 0; i < 4; ++i) {
+      err = cudaFuncSetAttribute(updates[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem[i]));
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+  }
+
+  // steps 1 and 2 of the panel at base, on stream s
+  static cudaError_t panel(T* out, int* status, T* inv, int batch, int n, int base,
+                           cudaStream_t s) {
+    const int rest = n - base - kNB;
+    const int tiles = rest > 0 ? (rest + kRowsPer - 1) / kRowsPer : 0;
+    if (tiles > 0 && !grid_ok(static_cast<long long>(batch) * tiles)) {
+      return cudaErrorInvalidConfiguration;
+    }
+    if constexpr (V == 2) {
+      blk_diag32_kernel<T><<<batch, Diag32<T>::kThreads, kDiagSmem, s>>>(out, status, n, base);
+      if (tiles > 0) {
+        blk_rows32_kernel<T><<<batch * tiles, kPanelThreads, kRowsSmem, s>>>(out, status, n,
+                                                                              base, tiles);
+      }
+    } else {
+      blk_diag_kernel<T, kMB, kInv><<<batch, kDiagThreads, kDiagSmem, s>>>(out, status, inv, n,
+                                                                          base);
+      if (tiles > 0) {
+        blk_rows_kernel<T, kMB, kInv><<<batch * tiles, kPanelThreads, kRowsSmem, s>>>(
+            out, status, inv, n, base, tiles);
+      }
+    }
+    return cudaGetLastError();
+  }
+};
+
+// step 3 of the panel at base: the first column block (kFirstBM-row
+// tiles), or the rest (128-row tiles)
+template <typename T, int BM, bool VEC>
+void launch_update(T* out, const int* status, int blocks, int n, int base, int tiles,
+                   cudaStream_t s) {
+  blk_update_kernel<T, BM, VEC><<<blocks, kUpdThreads, UpdCfg<T, BM>::kSmem, s>>>(
+      out, status, n, base, tiles);
+}
+
+template <typename T>
+cudaError_t update(T* out, const int* status, int batch, int n, int base, bool first,
+                   cudaStream_t s) {
+  const int rest = n - base - kNB;
+  const int nt = (rest + kBM - 1) / kBM;
+  const int tiles = first ? (rest + kFirstBM - 1) / kFirstBM : nt * (nt - 1) / 2;
+  if (tiles == 0) return cudaSuccess;
+  if (!grid_ok(static_cast<long long>(batch) * tiles)) return cudaErrorInvalidConfiguration;
+  const int blocks = batch * tiles;
+  // 16-byte copies need every row 16-byte aligned (out comes from the allocator)
+  const bool vec = (static_cast<size_t>(n) * sizeof(T)) % 16 == 0;
+  if (first) {
+    if (vec) launch_update<T, kFirstBM, true>(out, status, blocks, n, base, tiles, s);
+    else launch_update<T, kFirstBM, false>(out, status, blocks, n, base, tiles, s);
+  } else {
+    if (vec) launch_update<T, kBM, true>(out, status, blocks, n, base, tiles, s);
+    else launch_update<T, kBM, false>(out, status, blocks, n, base, tiles, s);
+  }
+  return cudaGetLastError();
+}
+
+#define MOGP_TRY(expr)                              \
+  do {                                              \
+    const cudaError_t e_ = (expr);                  \
+    if (e_ != cudaSuccess) return static_cast<int>(e_); \
+  } while (0)
+
+template <typename T, int V>
+int run(const T* a, T* out, int* status, T* inv, int batch, int n, cudaStream_t s) {
+  using St = Steps<T, V>;
+  MOGP_TRY(St::prepare());
   const int rows_per = max(1, kCopyElems / n);
   const int chunks = (n + rows_per - 1) / rows_per;
   if (!grid_ok(static_cast<long long>(batch) * chunks)) return cudaErrorInvalidConfiguration;
-  blk_init_kernel<T><<<batch * chunks, kCopyThreads, 0, s>>>(a, out, n, rows_per, chunks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
 
-  for (int base = 0; base < n; base += kNB) {
-    blk_diag_kernel<T, MB, INV><<<batch, kDiagThreads, diag_smem, s>>>(out, status, inv, n,
-                                                                        base);
-    const int rest = n - base - kNB;
-    if (rest > 0) {
-      const int tiles = (rest + kRowTile - 1) / kRowTile;
-      const int nt = (rest + kBM - 1) / kBM;
-      const int pairs = nt * (nt + 1) / 2;
-      if (!grid_ok(static_cast<long long>(batch) * tiles) ||
-          !grid_ok(static_cast<long long>(batch) * pairs)) {
-        return cudaErrorInvalidConfiguration;
-      }
-      blk_rows_kernel<T, MB, INV><<<batch * tiles, kPanelThreads, rows_smem, s>>>(
-          out, status, inv, n, base, tiles);
-      blk_update_kernel<T><<<batch * pairs, kUpdThreads, 0, s>>>(out, status, n, base, pairs);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  std::lock_guard<std::mutex> lock(g_mutex);
+  Side* sd = nullptr;
+  MOGP_TRY(side_of_current_device(&sd));
+  blk_init_kernel<T><<<batch * chunks, kCopyThreads, 0, s>>>(a, out, n, rows_per, chunks);
+  MOGP_TRY(cudaGetLastError());
+  MOGP_TRY(St::panel(out, status, inv, batch, n, 0, s));
+  // Panel p has a successor only when it is full: its update's first launch
+  // gives the next panel its column block, whose diag and rows steps then run
+  // on the side stream while the rest of the update runs here.
+  for (int base = 0; base + kNB < n; base += kNB) {
+    MOGP_TRY(update<T>(out, status, batch, n, base, true, s));
+    MOGP_TRY(cudaEventRecord(sd->ready, s));
+    MOGP_TRY(cudaStreamWaitEvent(sd->stream, sd->ready, 0));
+    MOGP_TRY(St::panel(out, status, inv, batch, n, base + kNB, sd->stream));
+    MOGP_TRY(cudaEventRecord(sd->done, sd->stream));
+    MOGP_TRY(update<T>(out, status, batch, n, base, false, s));
+    MOGP_TRY(cudaStreamWaitEvent(s, sd->done, 0));
   }
   blk_finish_kernel<T><<<batch * chunks, kCopyThreads, 0, s>>>(out, status, n, rows_per, chunks);
   return static_cast<int>(cudaGetLastError());
@@ -546,9 +1157,9 @@ int run_variant(const void* a, void* out, void* status, void* inv, int batch, in
   int* st = static_cast<int*>(status);
   T* it = static_cast<T*>(inv);
   switch (variant) {
-    case 1: return run<T, 1, false>(at, ot, st, it, batch, n, s);
-    case 2: return run<T, 8, false>(at, ot, st, it, batch, n, s);
-    case 3: return run<T, 16, true>(at, ot, st, it, batch, n, s);
+    case 1: return run<T, 1>(at, ot, st, it, batch, n, s);
+    case 2: return run<T, 2>(at, ot, st, it, batch, n, s);
+    case 3: return run<T, 3>(at, ot, st, it, batch, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -557,11 +1168,13 @@ int run_variant(const void* a, void* out, void* status, void* inv, int batch, in
 
 extern "C" {
 
-// The whole panel loop on `stream`; returns the first launch error (0 on
-// success).  status: `batch` ints, zeroed by the caller; on return 0, or
-// the 1-based column of the pivot that failed.  inv: variant 3
-// only, batch x 128 x 16 elements of scratch (may be null otherwise).
-// is_double: 0 float, 1 double.  variant: 1, 2 or 3.  batch >= 1, n >= 1.
+// The whole panel loop, enqueued on `stream` (with a side stream of its own
+// for the look-ahead, joined back before the last launch); returns the
+// first launch error (0 on success).  status: `batch` ints, zeroed by the
+// caller; on return 0, or the 1-based column of the pivot that failed.
+// inv: variant 3 only, batch x 128 x 16 elements of scratch (may be null
+// otherwise).  is_double: 0 float, 1 double.  variant: 1, 2 or 3.  batch >=
+// 1, n >= 1.
 int mogp_cholesky_blocked(const void* a, void* out, void* status, void* inv, int batch, int n,
                           int is_double, int variant, void* stream) {
   if (batch < 1 || n < 1 || (variant == 3 && inv == nullptr)) {

@@ -10,11 +10,12 @@ untouched.  It takes the n above K2's shared-memory bound
 batched ladder above n = 340 (float32) / 240 (float64).
 
 * On a CUDA tensor it runs the panel loop of ``csrc/cholesky_blocked.cu``
-  (128-column panels, three launches each, plus one copy in and one NaN
-  pass out; built at first use by ``ops/_build.py``) and adds one to
-  ``launches[variant]``: one count per factorization, i.e. per panel loop.
-  It does not catch build or launch errors and never falls back to the
-  plain version.
+  (128-column panels, four launches each, plus one copy in and one NaN
+  pass out; built at first use by ``ops/_build.py``) on the current stream,
+  with a side stream of the library's own for the look-ahead, joined back
+  before it returns, and adds one to ``launches[variant]``: one count per
+  factorization, i.e. per panel loop.  It does not catch build or launch
+  errors and never falls back to the plain version.
 * On a CPU tensor it calls :func:`cholesky_blocked_plain`, K2's plain
   version (``cholesky_ex`` with the ``info`` mask), which is what the CPU
   tests run.
@@ -23,9 +24,15 @@ batched ladder above n = 340 (float32) / 240 (float64).
   panel loop stops a matrix there, so the FLOPs a failed factorization ran
   can be counted).
 * The variants compute the same factor in other orders: rank-1 panel
-  steps (v1), rank-8 micro-panels (v2), 16-column micro-panels through the
-  Newton inverse of their diagonal tile (v3).  Unlike the JAX v3, the port's
-  v3 takes float64 too.
+  steps (v1), 32-column micro-panels with tensor-core products (v2, the
+  route), 16-column micro-panels through the Newton inverse of their
+  diagonal tile (v3).  All three share the trailing update on tensor cores
+  (three TF32 passes in float32, DMMA in float64) and the look-ahead panel
+  loop; ``csrc/cholesky_blocked.cu`` says why.  Unlike the JAX v3, the
+  port's v3 takes float64 too.
+* :func:`tf32_round` and :func:`matmul_tf32` emulate the update's float32
+  arithmetic on the CPU (``tests/test_torch_tf32_split.py``); no path of
+  the port calls them.
 """
 
 import torch
@@ -33,7 +40,7 @@ import torch
 from .cholesky_batched import check_square_batch, cholesky_batched_plain, cholesky_plain_ex
 
 __all__ = ["cholesky_blocked", "cholesky_blocked_ex", "cholesky_blocked_plain", "VARIANTS",
-           "PANEL", "launches"]
+           "PANEL", "launches", "tf32_round", "matmul_tf32"]
 
 VARIANTS = ("v1", "v2", "v3")
 
@@ -86,3 +93,31 @@ def cholesky_blocked_ex(A, variant):
         )
     launches[variant] += 1
     return out, status
+
+
+def tf32_round(x):
+    """float32 ``x`` rounded as ``cvt.rna.tf32.f32`` rounds it: to nearest,
+    ties away from zero, keeping 10 of the 23 mantissa bits (the sign and
+    magnitude bits of a float are its int32 pattern, so adding half of the
+    dropped 13 bits' range and clearing them rounds the magnitude).
+    Infinities and NaNs pass through."""
+    if x.dtype != torch.float32:
+        raise TypeError("tf32_round takes float32, got {}".format(x.dtype))
+    r = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def matmul_tf32(a, b, passes=3):
+    """``a @ b`` of float32 tensors in the tensor-core arithmetic of the
+    blocked update.  ``passes=3`` (the kernels' 3xTF32) splits each operand
+    as ``hi = tf32(x)``, ``lo = tf32(x - hi)`` and sums ``lo hi' + hi lo' +
+    hi hi'`` in float32: products of TF32 values are exact in float32, and
+    the missing ``lo lo'`` is ~2^-22 of the product.  ``passes=1`` is one
+    plain TF32 product, which no kernel of the port uses."""
+    if passes not in (1, 3):
+        raise ValueError("passes must be 1 or 3, got {!r}".format(passes))
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi

@@ -57,7 +57,8 @@ MEANS = [None, "x[0]"]
 def test_gp_nlp_value_and_grad_match_jax(mean, kernel, nugget):
     x, y = _data()
     gj = mogp_tpu.GaussianProcess(x, y, mean=mean, kernel=kernel, nugget=nugget)
-    gt = mogp_tpu_torch.GaussianProcess(x, y, mean=mean, kernel=kernel, nugget=nugget)
+    gt = mogp_tpu_torch.GaussianProcess(x, y, mean=mean, kernel=kernel, nugget=nugget,
+                                        device="cpu")
     raws = _raws(gj)
     data = tgp.take_lanes(gt._data, torch.zeros(len(raws), dtype=torch.int64))
     rt = torch.as_tensor(raws).requires_grad_(True)
@@ -74,7 +75,7 @@ def test_gp_nlp_value_and_grad_match_jax(mean, kernel, nugget):
 def test_gp_nlp_trajectory_ladders_match_jax(ladder):
     x, y = _data(1)
     gj = mogp_tpu.GaussianProcess(x, y, nugget="adaptive")
-    gt = mogp_tpu_torch.GaussianProcess(x, y, nugget="adaptive")
+    gt = mogp_tpu_torch.GaussianProcess(x, y, nugget="adaptive", device="cpu")
     raws = _raws(gj, seed=2)
     data = tgp.take_lanes(gt._data, torch.zeros(len(raws), dtype=torch.int64))
     rt = torch.as_tensor(raws).requires_grad_(True)
@@ -97,7 +98,7 @@ def test_gp_nlp_trajectory_ladders_match_jax(ladder):
 def test_logpost_deriv_and_hessian_match_jax(nugget, mean):
     x, y = _data(2)
     gj = mogp_tpu.GaussianProcess(x, y, mean=mean, nugget=nugget)
-    gt = mogp_tpu_torch.GaussianProcess(x, y, mean=mean, nugget=nugget)
+    gt = mogp_tpu_torch.GaussianProcess(x, y, mean=mean, nugget=nugget, device="cpu")
     theta = _raws(gj, n=1, seed=3)[0]
     assert_allclose(gt.logposterior(theta), gj.logposterior(theta), rtol=RTOL)
     assert_allclose(gt.logpost_deriv(theta), gj.logpost_deriv(theta), rtol=RTOL, atol=ATOL)

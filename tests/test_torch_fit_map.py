@@ -46,6 +46,12 @@ def _same_fit(et, ej):
     assert_allclose(et.nugget, ej.nugget, rtol=1e-6, atol=1e-300)
 
 
+def _dev(pkg):
+    """The device argument of the port's constructors (its default is the
+    card); the JAX package takes none."""
+    return {"device": "cpu"} if pkg is mogp_tpu_torch else {}
+
+
 def _fit_both(make, seed, **kw):
     out = []
     for pkg in (mogp_tpu, mogp_tpu_torch):
@@ -56,7 +62,7 @@ def _fit_both(make, seed, **kw):
 
 @pytest.fixture(scope="module")
 def mogp_pair():
-    return _fit_both(lambda pkg: pkg.MultiOutputGP(X, Y), 0, **FIT)
+    return _fit_both(lambda pkg: pkg.MultiOutputGP(X, Y, **_dev(pkg)), 0, **FIT)
 
 
 @pytest.mark.parametrize("output", range(3))
@@ -78,18 +84,18 @@ def test_multi_output_fit_phases_and_predictions(mogp_pair):
 @pytest.mark.parametrize("nugget", ["adaptive", "fit"])
 def test_single_gp_fit_with_theta0_matches_jax(nugget):
     theta0 = np.zeros(3 + int(nugget == "fit"))
-    gj, gt = _fit_both(lambda pkg: pkg.GaussianProcess(X, Y[0], nugget=nugget), 1,
+    gj, gt = _fit_both(lambda pkg: pkg.GaussianProcess(X, Y[0], nugget=nugget, **_dev(pkg)), 1,
                        theta0=theta0, **FIT)
     _same_fit(gt, gj)
 
 
 def test_chunking_changes_no_result(monkeypatch):
     np.random.seed(5)
-    whole = mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.MultiOutputGP(X, Y), **FIT)
+    whole = mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.MultiOutputGP(X, Y, device="cpu"), **FIT)
     assert fitting._max_lanes(whole.emulators[0]) >= 12
     monkeypatch.setattr(fitting, "_CHUNK_BYTES", 1)  # one output per chunk
     np.random.seed(5)
-    chunked = mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.MultiOutputGP(X, Y), **FIT)
+    chunked = mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.MultiOutputGP(X, Y, device="cpu"), **FIT)
     for a, b in zip(whole.emulators, chunked.emulators):
         assert np.array_equal(a.theta.get_data(), b.theta.get_data())
         assert a.current_logpost == b.current_logpost
@@ -117,16 +123,17 @@ def test_escalation_refits_failed_outputs_with_the_full_ladder(single_rung_fails
     mj = mogp_tpu.fit_GP_MAP(mogp_tpu.MultiOutputGP(X, Y[:2]), race=False, opt_ladder="full",
                              **FIT)
     np.random.seed(2)
-    mt = mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.MultiOutputGP(X, Y[:2]), **FIT)
+    mt = mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.MultiOutputGP(X, Y[:2], device="cpu"), **FIT)
     assert [k for k, _ in fitting.last_phase_times] == ["stage0", "stage1", "rescue", "refit"]
     for et, ej in zip(mt.emulators, mj.emulators):
         _same_fit(et, ej)
 
 
 def test_single_gp_escalation_reruns_the_schedule(single_rung_fails):
-    gj, gt = _fit_both(lambda pkg: pkg.GaussianProcess(X, Y[1]), 4, opt_ladder="full", **FIT)
+    gj, gt = _fit_both(lambda pkg: pkg.GaussianProcess(X, Y[1], **_dev(pkg)), 4,
+                       opt_ladder="full", **FIT)
     np.random.seed(4)
-    ge = mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.GaussianProcess(X, Y[1]), **FIT)
+    ge = mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.GaussianProcess(X, Y[1], device="cpu"), **FIT)
     _same_fit(ge, gj)
     assert np.array_equal(ge.theta.get_data(), gt.theta.get_data())
 
@@ -136,14 +143,14 @@ def test_single_gp_escalation_reruns_the_schedule(single_rung_fails):
 # ---------------------------------------------------------------------------
 
 def test_total_failure_raises():
-    gp = mogp_tpu_torch.GaussianProcess(X, np.full(25, np.nan))
+    gp = mogp_tpu_torch.GaussianProcess(X, np.full(25, np.nan), device="cpu")
     with pytest.raises(RuntimeError):
         mogp_tpu_torch.fit_GP_MAP(gp, n_tries=2, maxiter=5)
 
 
 def test_mogp_failure_skipping_and_nan_predictions(capsys):
     ys = np.stack([Y[0], np.full(25, np.nan)])
-    mgp = mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.MultiOutputGP(X, ys), n_tries=2,
+    mgp = mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.MultiOutputGP(X, ys, device="cpu"), n_tries=2,
                                     maxiter=5, skip_failures=True)
     assert mgp.get_indices_not_fit() == [1]
     assert mgp.emulators[1].theta.get_data() is None
@@ -153,12 +160,13 @@ def test_mogp_failure_skipping_and_nan_predictions(capsys):
     with pytest.raises(ValueError):
         mgp.predict(X[:3])
     with pytest.raises(RuntimeError):
-        mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.MultiOutputGP(X, ys), n_tries=2, maxiter=5,
+        mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.MultiOutputGP(X, ys, device="cpu"), n_tries=2,
+                                  maxiter=5,
                                   skip_failures=False, refit=True)
 
 
 def test_refit_semantics_and_arguments():
-    mgp = mogp_tpu_torch.MultiOutputGP(X, Y[:2])
+    mgp = mogp_tpu_torch.MultiOutputGP(X, Y[:2], device="cpu")
     mgp = mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=2, maxiter=5)
     thetas = [em.theta.get_data().copy() for em in mgp.emulators]
     mgp = mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=2, maxiter=5)  # nothing left to fit
@@ -169,11 +177,11 @@ def test_refit_semantics_and_arguments():
     with pytest.raises(TypeError):
         mogp_tpu_torch.fit_GP_MAP()
     with pytest.raises(AssertionError):
-        mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.GaussianProcess(X, Y[0]), n_tries=1,
+        mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.GaussianProcess(X, Y[0], device="cpu"), n_tries=1,
                                   theta0=np.zeros(99))
     gp = mogp_tpu_torch.fit_GP_MAP(X, Y[0], n_tries=2, maxiter=5, device="cpu")
     assert isinstance(gp, mogp_tpu_torch.GaussianProcess)
-    mgp = mogp_tpu_torch.fit_GP_MAP(X, Y[:2], n_tries=2, maxiter=5, nugget="fit")
+    mgp = mogp_tpu_torch.fit_GP_MAP(X, Y[:2], n_tries=2, maxiter=5, nugget="fit", device="cpu")
     assert isinstance(mgp, mogp_tpu_torch.MultiOutputGP) and mgp.get_indices_not_fit() == []
     with pytest.warns(UserWarning):
-        mogp_tpu_torch.fit_GP_MAP(X, Y[0], n_tries=1, maxiter=5, not_an_option=1)
+        mogp_tpu_torch.fit_GP_MAP(X, Y[0], n_tries=1, maxiter=5, not_an_option=1, device="cpu")

@@ -95,7 +95,7 @@ def test_gaussian_process_fit_predict(mean, nugget):
 def test_multi_output_gp_fit_predict(mean, nugget):
     x, y, q = _data()
     mj = mogp_tpu.MultiOutputGP(x, y, mean=mean, nugget=nugget)
-    mt = mogp_tpu_torch.MultiOutputGP(x, y, mean=mean, nugget=nugget)
+    mt = mogp_tpu_torch.MultiOutputGP(x, y, mean=mean, nugget=nugget, device="cpu")
     th = _thetas(np.random.RandomState(2), mj.emulators[0].n_params)
     mj.fit(th)
     # a plain numpy array as taken from the JAX emulators
@@ -113,7 +113,7 @@ def test_tiled_prediction_matches():
     x, y, _ = _data()
     q = np.random.RandomState(5).rand(300, D)
     mj = mogp_tpu.MultiOutputGP(x, y, mean="x[0]")
-    mt = mogp_tpu_torch.MultiOutputGP(x, y, mean="x[0]")
+    mt = mogp_tpu_torch.MultiOutputGP(x, y, mean="x[0]", device="cpu")
     th = _thetas(np.random.RandomState(3), mj.emulators[0].n_params)
     mj.fit(th)
     mt.fit(th)
@@ -142,7 +142,7 @@ def test_same_width_formulas_do_not_share_a_group():
     x, y, q = _data()
     means = ["x[0]", "x[1]", "x[0]", "x[2]"]
     mj = mogp_tpu.MultiOutputGP(x, y, mean=means)
-    mt = mogp_tpu_torch.MultiOutputGP(x, y, mean=means)
+    mt = mogp_tpu_torch.MultiOutputGP(x, y, mean=means, device="cpu")
     assert len(mt._groups()) == 3
     th = _thetas(np.random.RandomState(4), mj.emulators[0].n_params)
     mj.fit(th)
@@ -156,7 +156,7 @@ def test_every_kernel_through_the_slice():
     x, y, q = _data()
     kernels = ["SquaredExponential", "Matern52", "UniformMat52", "ProductMat52"]
     mj = mogp_tpu.MultiOutputGP(x, y, kernel=kernels)
-    mt = mogp_tpu_torch.MultiOutputGP(x, y, kernel=kernels)
+    mt = mogp_tpu_torch.MultiOutputGP(x, y, kernel=kernels, device="cpu")
     rng = np.random.RandomState(6)
     th = [rng.uniform(0.0, 1.0, size=em.n_params) for em in mj.emulators]
     mj.fit(th)
@@ -198,13 +198,13 @@ def test_checkpoints_written_by_mogp_tpu_load_in_the_port(tmp_path):
 
 def test_unfit_and_bad_arguments_raise():
     x, y, q = _data()
-    gt = mogp_tpu_torch.GaussianProcess(x, y[0])
+    gt = mogp_tpu_torch.GaussianProcess(x, y[0], device="cpu")
     with pytest.raises(ValueError):
         gt.predict(q)
     with pytest.raises(AssertionError):
         gt.fit(np.zeros(gt.n_params + 1))
     with pytest.raises(ValueError):
-        mogp_tpu_torch.GaussianProcess(x, y[0], kernel="NotAKernel")
-    gp = mogp_tpu_torch.GaussianProcess(x, y[0], nugget="pivot")
+        mogp_tpu_torch.GaussianProcess(x, y[0], kernel="NotAKernel", device="cpu")
+    gp = mogp_tpu_torch.GaussianProcess(x, y[0], nugget="pivot", device="cpu")
     with pytest.raises(NotImplementedError):
         gp.fit(np.zeros(gp.n_params))

@@ -67,7 +67,9 @@ def test_cuda_refused_without_a_card(monkeypatch):
         mogp_tpu_torch.GaussianProcess([[0.0], [1.0]], [0.0, 1.0], device="cuda")
 
 
-def test_default_dtype_follows_device():
+def test_default_dtype_follows_device(monkeypatch):
+    """The default device is the card, decided when called, never at import."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert config.default_dtype("cpu") == torch.float64
-    assert config.default_dtype(None) == torch.float64
-    assert config.resolve_device(None) == torch.device("cpu")
+    assert config.default_dtype(None) == torch.float32
+    assert config.resolve_device(None) == torch.device("cuda")
