@@ -14,8 +14,9 @@
 // factorization in 128-column panels, with the trailing Schur complement
 // updated on the MXU:
 //
-// * variant 1, K3 (chol_blocked, :111): the panel is factored column by
-//   column with rank-1 steps;
+// * variant 1, K3 (chol_blocked, :111): the panel, its diagonal block and
+//   the rows below together, is factored column by column with rank-1
+//   steps;
 // * variant 2, K4 (chol_blocked_v2, :269): the panel is factored in
 //   micro-panels (rank-8 on the TPU; 32 columns here, see below);
 // * variant 3, K5 (chol_blocked_v3, :411): 16-column micro-panels whose
@@ -80,9 +81,31 @@
 // cholesky_ex in float32; tests/test_torch_tf32_split.py rehearses the same
 // arithmetic on the CPU, where one TF32 pass fails that rule.
 //
-// Variants 1 and 3 keep their own diag and rows steps (blk_diag_kernel,
-// blk_rows_kernel: micro-panel width MB = 1 or 16, 384 or 24 barriers per
-// panel) and share the update and the look-ahead loop.
+// Variant 1 (K3) runs steps 1 and 2 as one launch, blk_panel1_kernel, the
+// JAX kernel's own structure: 128 rank-1 steps over all of the panel's rows.
+// Its grid covers the rows below the diagonal block in tiles of kRT rows;
+// each block stages the diagonal block's lower triangle and its own rows
+// through shared memory into registers (lane = row group, warp = column
+// group, both cyclic, so every warp keeps work as the sweep moves right) and
+// factors the diagonal block again, by the same operations as every other
+// block, so all copies agree.  Step k is one barrier: every thread reads
+// L[:, k] from a double-buffered shared column and applies a_ic -= L_ik
+// L_ck, the products of tools/exp_chol.py:69-75 (each factor a_.k r_k,
+// r_k = rsqrt(d_k)); the warp that holds column k + 1 updates it first,
+// takes its pivot by a shuffle, checks it, scales the column and writes it
+// to the other buffer, so the other warps never wait on an rsqrt.  The
+// diagonal block is written by the block that loaded last (a per-matrix
+// counter in the zero upper triangle of out, cleared again), so that no
+// block can read it factored.  128 barriers a panel, against 384 in a
+// separate diag step with rank-1 micro-panels and then a rows step that
+// walks each row through 128 dependent warp steps.  What bounds it: the
+// chain of 128 steps, each the shared-memory reads of the column (a
+// broadcast per column slot, one read per row slot), the FMAs, and one
+// warp's pivot, scaling and store before the barrier.
+//
+// Variant 3 keeps its own diag and rows steps (blk_diag_kernel,
+// blk_rows_kernel: 16-column micro-panels, 24 barriers per panel) and
+// shares the update and the look-ahead loop.
 //
 // The NaN contract across launches: status[b] (int, zeroed by the caller)
 // is set by the diag step to the 1-based column of the failing pivot (the
@@ -110,9 +133,9 @@ using mogp::good_pivot;
 using mogp::load4;
 
 constexpr int kNB = 128;           // panel width
-constexpr int kLD = kNB + 1;       // v1 / v3 row stride: column walks hit distinct banks
+constexpr int kLD = kNB + 1;       // v3 row stride: column walks hit distinct banks
 constexpr int kLDS = kNB + 4;      // v2 row stride: fragment rows g, columns t hit banks 4g + t
-constexpr int kRowTile = 32;       // v1 / v3: rows of L21 per block of the rows step
+constexpr int kRowTile = 32;       // v3: rows of L21 per block of the rows step
 constexpr int kRowTile2 = 64;      // v2: rows of L21 per block of the rows step
 constexpr int kMP = 32;            // v2: micro-panel width
 constexpr int kDiagThreads = 512;  // the serial step: as many warps as help
@@ -465,7 +488,7 @@ __device__ __forceinline__ void factor_tile(T* D, T* dinv, T* X, T* col, int mb,
 // The rank-mb update of row R by the micro-panel (columns 0..mb of R and of
 // the rows C(c) = C0 + c * kLD): R[mb + c] -= sum_k v[k] C(c)[k] for c in
 // [0, cols) (cols <= 128), with v[k] = R[k] already in registers; one warp,
-// each lane four columns at once (independent FMA chains).  Variants 1, 3.
+// each lane four columns at once (independent FMA chains).  Variant 3.
 template <typename T, int MB>
 __device__ __forceinline__ void rank_update_row(T* R, const T* C0, const T (&v)[MB], int mb,
                                                 int cols) {
@@ -493,10 +516,10 @@ __device__ __forceinline__ void rank_update_row(T* R, const T* C0, const T (&v)[
   }
 }
 
-// One row's mb micro-panel entries R[0..mb), times L_D^-T, into v:
-// forward substitution against the factored tile D with the reciprocals
-// dinv of its diagonal (variant 1), or the product with its inverse X
-// (variant 3).
+// One row's mb micro-panel entries R[0..mb), times L_D^-T, into v: the
+// product with the tile's inverse X (INV, variant 3), or forward
+// substitution against the factored tile D with the reciprocals dinv of its
+// diagonal.
 template <typename T, int MB, bool INV>
 __device__ __forceinline__ void solve_vals(const T* R, const T* D, const T* dinv, const T* X,
                                            int mb, T (&v)[MB]) {
@@ -548,8 +571,8 @@ __device__ __forceinline__ void subst_row32(T* R, const T* D, const T* dinv) {
 // Step 1: the diagonal block
 // ---------------------------------------------------------------------------
 
-// Variants 1 and 3: factor the diagonal block at (base, base), width w =
-// min(128, n - base), one block per matrix, in micro-panels of MB columns.
+// Variant 3: factor the diagonal block at (base, base), width w = min(128,
+// n - base), one block per matrix, in micro-panels of MB columns.
 // Variant 3 also leaves the inverse of each 16 x 16 diagonal tile in inv
 // (kNB x kMaxMB per matrix) for step 2.
 template <typename T, int MB, bool INV>
@@ -705,8 +728,8 @@ blk_diag32_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
 // Step 2: the rows below the diagonal block
 // ---------------------------------------------------------------------------
 
-// Variants 1 and 3: L21 = A21 L11^-T for the 32 rows of this block below a
-// full diagonal block (rows exist below a panel only when it is 128 wide).
+// Variant 3: L21 = A21 L11^-T for the 32 rows of this block below a full
+// diagonal block (rows exist below a panel only when it is 128 wide).
 template <typename T, int MB, bool INV>
 __global__ void __launch_bounds__(kPanelThreads)
 blk_rows_kernel(T* __restrict__ out, const int* __restrict__ status,
@@ -820,6 +843,192 @@ blk_rows32_kernel(T* __restrict__ out, const int* __restrict__ status, int n, in
     M[static_cast<size_t>(r0 + r) * n + base + c] = Xs[r * kLDS + c];
   }
   MOGP_PHASE(11);
+}
+
+// ---------------------------------------------------------------------------
+// Variant 1: steps 1 and 2 in one launch, rank-1 over the whole panel
+// ---------------------------------------------------------------------------
+
+// A block's panel: the 128 rows of the diagonal block and kRT rows below
+// it, 128 columns.  Lane l holds the rows l + 32 m (m < kDS: the diagonal
+// block, then this block's rows), warp wc the columns 32 q + 4 wc + f in
+// slot j = 4 q + f: a column is written by one warp, every lane its own
+// rows; a warp reads four of its columns' values in one 16-byte broadcast;
+// and its column groups drop out as the sweep passes them, the warps never
+// more than 4 columns apart.  kRT keeps the slots in registers: 6 x 16
+// floats or 5 x 16 doubles a thread.
+template <typename T>
+struct Panel1 {
+  static constexpr int kThreads = 256;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kRT = sizeof(T) == 4 ? 64 : 32;
+  static constexpr int kRows = kNB + kRT;
+  static constexpr int kRS = kRows / 32;     // row slots
+  static constexpr int kDS = kNB / 32;       // of which in the diagonal block
+  static constexpr int kCS = kNB / kWarps;   // column slots
+  static constexpr size_t kSmem = static_cast<size_t>(kRows) * kLD * sizeof(T);  // the staging
+};
+
+// Column k of the panel, held by one warp in slot j of its registers (rows
+// l + 32 m), becomes L[:, k]: r = rsqrt(d_k), d_k from the lane that holds
+// row k (slot mk), every value times r, in the registers and in buf for the
+// next step.  The first pivot that is not positive and finite sets *bad to
+// its column k + 1; the sweep goes on (in NaNs) and the caller checks *bad
+// once, at the end.  j and mk are constants after unrolling.
+template <typename T, int RS, int CS>
+__device__ __forceinline__ void publish_col(T (&a)[RS][CS], int j, int mk, int k, T* buf,
+                                            int* bad) {
+  const int l = threadIdx.x % 32;
+  const T d = __shfl_sync(0xffffffffu, a[mk][j], k & 31);
+  if (!good_pivot(d) && l == 0 && *bad == 0) *bad = k + 1;
+  const T r = dev_rsqrt(d);
+#pragma unroll
+  for (int m = 0; m < RS; ++m) {
+    a[m][j] *= r;
+    buf[l + 32 * m] = a[m][j];
+  }
+}
+
+// Rank-1 update of the column slot j of every row slot: a_ic -= u_i v_c,
+// with u_i = L_ik for the rows and v_c = L_ck from the published column.
+template <typename T, int RS, int CS>
+__device__ __forceinline__ void rank1_slot(T (&a)[RS][CS], const T (&u)[RS], int j, T v) {
+#pragma unroll
+  for (int m = 0; m < RS; ++m) a[m][j] = dev_fma(-u[m], v, a[m][j]);
+}
+
+// Steps 1 and 2 of the panel at base for the kRT rows of tile blockIdx.x %
+// tiles below it (none for the last panel): see the file header.  Slot
+// (m, j) is the panel element (l + 32 m, 32 (j / 4) + 4 wc + j % 4).  The
+// sweep updates every row at every step: the elements above the diagonal
+// block's diagonal, and those past w or past n, are not the matrix's, start
+// at zero, feed only each other and are never stored.  Step k reads L[:, k]
+// from the column buffer; the warp that holds column k + 1 updates it
+// first, then scales and publishes it (publish_col), so the other warps
+// never wait on an rsqrt.  A bad pivot is acted on after the sweep: a
+// failing matrix costs at most the rest of one panel, and the steps carry
+// no exit test.
+template <typename T>
+__global__ void __launch_bounds__(Panel1<T>::kThreads, 1)
+blk_panel1_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base, int tiles) {
+  using P = Panel1<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* S = reinterpret_cast<T*>(smem_raw);        // kRows x kLD: the panel in and out
+  __shared__ __align__(16) T col[2][P::kRows];  // L[:, k], by parity of k
+  __shared__ int last, bad;
+  MOGP_PHASE_BEGIN();
+  const int lane = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  if (status[lane]) return;
+  const int w = min(kNB, n - base);
+  const int r0 = base + kNB + tile * P::kRT;  // first row of this block below the diagonal block
+  const int rows = max(0, min(P::kRT, n - r0));
+  T* M = out + mat_offset(lane, n);
+  const int t = threadIdx.x, l = t % 32, wc = t / 32;
+
+  // the panel into S by cp.async, one element a copy (S's rows are kLD
+  // wide, so that the register slots read it without bank conflicts)
+  for (int e = t; e < P::kRows * kNB; e += P::kThreads) {
+    const int i = e / kNB, c = e % kNB;
+    const bool ok = i < kNB ? i < w && c <= i : i - kNB < rows;
+    const T* src = M + static_cast<size_t>(i < kNB ? base + i : r0 + i - kNB) * n + base + c;
+    cp_async<sizeof(T)>(S + i * kLD + c, ok ? src : M, ok ? static_cast<int>(sizeof(T)) : 0);
+  }
+  cp_async_commit();
+  if (t == 0) bad = 0;
+  cp_async_wait<0>();
+  __syncthreads();
+  // The diagonal block goes back to out from the block that loaded last:
+  // every other block has its copy by then.  The counter is the block's
+  // top-right corner, zero in out (upper triangle); the last block clears it.
+  if (t == 0) {
+    int* counter = reinterpret_cast<int*>(M + static_cast<size_t>(base) * n + base + kNB - 1);
+    if (tiles > 1) __threadfence();  // the block's loads before the count
+    last = tiles == 1 || atomicAdd(counter, 1) == tiles - 1;
+    if (last && tiles > 1) {
+      __threadfence();
+      *counter = 0;
+    }
+  }
+  T a[P::kRS][P::kCS];
+#pragma unroll
+  for (int m = 0; m < P::kRS; ++m) {
+#pragma unroll
+    for (int j = 0; j < P::kCS; ++j) {
+      a[m][j] = S[(l + 32 * m) * kLD + 32 * (j / 4) + 4 * wc + j % 4];
+    }
+  }
+  if (wc == 0) publish_col(a, 0, 0, 0, col[0], &bad);
+  __syncthreads();
+  MOGP_PHASE(5);
+  MOGP_LAP_BEGIN();
+
+  // step k = 32 q + 4 ow + e: column k is slot 4 q + e of warp ow, so every
+  // slot index is a constant.  A warp's groups below q are done; group q is
+  // live for wc > ow, and for wc == ow past e.
+#pragma unroll
+  for (int q = 0; q < kNB / 32; ++q) {
+#pragma unroll 1
+    for (int ow = 0; ow < P::kWarps; ++ow) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 32 * q + 4 * ow + e;
+        if (k >= w) goto swept;
+        const T* cur = col[k & 1];
+        T* nxt = col[(k + 1) & 1];
+        const bool more = k + 1 < w;
+        T u[P::kRS], v[4];
+#pragma unroll
+        for (int m = 0; m < P::kRS; ++m) u[m] = cur[l + 32 * m];
+        if (wc >= ow) {  // uniform in the warp
+          load4(cur + 32 * q + 4 * wc, v);
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            if (f > e || wc > ow) rank1_slot(a, u, 4 * q + f, v[f]);
+          }
+        }
+        // column k + 1 in group q: warp ow's next slot, or warp ow + 1's first
+        if (more && wc == (e < 3 ? ow : ow + 1)) {
+          publish_col(a, e < 3 ? 4 * q + e + 1 : 4 * q, q, k + 1, nxt, &bad);
+        }
+#pragma unroll
+        for (int q2 = q + 1; q2 < kNB / 32; ++q2) {
+          load4(cur + 32 * q2 + 4 * wc, v);
+#pragma unroll
+          for (int f = 0; f < 4; ++f) rank1_slot(a, u, 4 * q2 + f, v[f]);
+          // column k + 1 opens group q + 1: warp 0's first slot
+          if (q2 == q + 1 && e == 3 && ow == P::kWarps - 1 && wc == 0 && more) {
+            publish_col(a, 4 * q2, q2, k + 1, nxt, &bad);
+          }
+        }
+        MOGP_LAP(0);
+        __syncthreads();
+        MOGP_LAP(1);
+      }
+    }
+  }
+swept:
+  MOGP_LAP_FLUSH(12, 13);
+  MOGP_PHASE(6);
+  if (bad) {  // read by every thread after the last barrier: a uniform exit
+    if (last && t == 0) status[lane] = base + bad;
+    return;
+  }
+
+  // through S for whole-row stores
+#pragma unroll
+  for (int m = 0; m < P::kRS; ++m) {
+#pragma unroll
+    for (int j = 0; j < P::kCS; ++j) {
+      S[(l + 32 * m) * kLD + 32 * (j / 4) + 4 * wc + j % 4] = a[m][j];
+    }
+  }
+  __syncthreads();
+  for (int e = t; e < P::kRows * kNB; e += P::kThreads) {
+    const int i = e / kNB, c = e % kNB;
+    const bool ok = i < kNB ? last && i < w && c <= i : i - kNB < rows;
+    if (ok) M[static_cast<size_t>(i < kNB ? base + i : r0 + i - kNB) * n + base + c] = S[i * kLD + c];
+  }
+  MOGP_PHASE(7);
 }
 
 // ---------------------------------------------------------------------------
@@ -1014,7 +1223,7 @@ cudaError_t side_of_current_device(Side** out) {
 
 template <typename T, int V>
 struct Steps {
-  static constexpr int kMB = V == 1 ? 1 : 16;  // v1 / v3 micro-panel (v2's is kMP)
+  static constexpr int kMB = 16;  // v3's micro-panel (v2's is kMP; v1 has none)
   static constexpr bool kInv = V == 3;
   static constexpr size_t kDiagSmem =
       V == 2 ? (static_cast<size_t>(kNB) * kLDS + kNB) * sizeof(T)
@@ -1026,8 +1235,11 @@ struct Steps {
   static constexpr int kRowsPer = V == 2 ? kRowTile2 : kRowTile;
 
   static cudaError_t prepare() {
-    cudaError_t err;
-    if constexpr (V == 2) {
+    cudaError_t err = cudaSuccess;
+    if constexpr (V == 1) {
+      err = cudaFuncSetAttribute(blk_panel1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(Panel1<T>::kSmem));
+    } else if constexpr (V == 2) {
       err = cudaFuncSetAttribute(blk_diag32_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(kDiagSmem));
       if (err != cudaSuccess) return err;
@@ -1061,22 +1273,29 @@ struct Steps {
   static cudaError_t panel(T* out, int* status, T* inv, int batch, int n, int base,
                            cudaStream_t s) {
     const int rest = n - base - kNB;
-    const int tiles = rest > 0 ? (rest + kRowsPer - 1) / kRowsPer : 0;
-    if (tiles > 0 && !grid_ok(static_cast<long long>(batch) * tiles)) {
-      return cudaErrorInvalidConfiguration;
-    }
-    if constexpr (V == 2) {
-      blk_diag32_kernel<T><<<batch, Diag32<T>::kThreads, kDiagSmem, s>>>(out, status, n, base);
-      if (tiles > 0) {
-        blk_rows32_kernel<T><<<batch * tiles, kPanelThreads, kRowsSmem, s>>>(out, status, n,
-                                                                              base, tiles);
-      }
+    if constexpr (V == 1) {  // one launch; the last panel is one block per matrix
+      const int tiles = rest > 0 ? (rest + Panel1<T>::kRT - 1) / Panel1<T>::kRT : 1;
+      if (!grid_ok(static_cast<long long>(batch) * tiles)) return cudaErrorInvalidConfiguration;
+      blk_panel1_kernel<T><<<batch * tiles, Panel1<T>::kThreads, Panel1<T>::kSmem, s>>>(
+          out, status, n, base, tiles);
     } else {
-      blk_diag_kernel<T, kMB, kInv><<<batch, kDiagThreads, kDiagSmem, s>>>(out, status, inv, n,
-                                                                          base);
-      if (tiles > 0) {
-        blk_rows_kernel<T, kMB, kInv><<<batch * tiles, kPanelThreads, kRowsSmem, s>>>(
-            out, status, inv, n, base, tiles);
+      const int tiles = rest > 0 ? (rest + kRowsPer - 1) / kRowsPer : 0;
+      if (tiles > 0 && !grid_ok(static_cast<long long>(batch) * tiles)) {
+        return cudaErrorInvalidConfiguration;
+      }
+      if constexpr (V == 2) {
+        blk_diag32_kernel<T><<<batch, Diag32<T>::kThreads, kDiagSmem, s>>>(out, status, n, base);
+        if (tiles > 0) {
+          blk_rows32_kernel<T><<<batch * tiles, kPanelThreads, kRowsSmem, s>>>(out, status, n,
+                                                                                base, tiles);
+        }
+      } else {
+        blk_diag_kernel<T, kMB, kInv><<<batch, kDiagThreads, kDiagSmem, s>>>(out, status, inv, n,
+                                                                            base);
+        if (tiles > 0) {
+          blk_rows_kernel<T, kMB, kInv><<<batch * tiles, kPanelThreads, kRowsSmem, s>>>(
+              out, status, inv, n, base, tiles);
+        }
       }
     }
     return cudaGetLastError();

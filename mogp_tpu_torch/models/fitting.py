@@ -284,9 +284,7 @@ def _fit_MOGP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", refit=False, *
                 continue
             fit_rows.append(global_idx[row])
         # the winners' artifacts, with the full ladder, in batched gp_fit calls
-        step = _max_lanes(em0)
-        for r0 in range(0, len(fit_rows), step):
-            gp._fit_lanes(fit_rows[r0:r0 + step], best_raw[r0:r0 + step])
+        gp._fit_lanes(fit_rows, best_raw)
         mark("refit")
     return gp
 

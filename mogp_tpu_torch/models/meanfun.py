@@ -26,12 +26,16 @@ Categorical semantics (patsy ``C()``, ``GaussianProcess.py:505``):
   (model construction) and carried in a ``state`` dict so prediction
   reuses the training levels; a value outside the bound levels raises
   (patsy behaviour).  Explicit ``levels=[...]`` pins them up front.
-* Coding rule (documented simplification of patsy's per-term algorithm):
-  a LONE categorical main-effect term contributes ``len(levels) - 1``
-  columns (first level dropped, treatment coding) when the model has an
-  intercept, and ``len(levels)`` columns otherwise; categorical factors
-  inside ``:`` interaction terms always use full dummy coding (dropping
-  a level there would silence the interaction at the baseline level).
+* Coding rule (patsy's, for the terms below): a categorical factor of a
+  term gets treatment coding (``len(levels) - 1`` columns, first level
+  dropped) when the term without that factor is already in the model,
+  the intercept counting as the term with no factors, and full coding
+  (``len(levels)`` columns) otherwise.  So a lone ``C(...)`` under an
+  intercept drops a level; ``x[0] + x[0]:C(x[1])`` drops one inside the
+  interaction, because ``x[0]`` spans what the baseline level would add;
+  ``x[0]:C(x[1])`` alone keeps all of its levels.  This differs from
+  ``mogp_tpu``, which codes every factor inside a ``:`` term in full and
+  so gives a rank-deficient design for ``x[0] + x[0]:C(x[1])``.
   ``:`` products expand column-wise (numeric x each indicator;
   categorical x categorical gives all pairwise indicator products).
 * ``C(...)`` must be a whole ``:``-factor; embedding it inside
@@ -236,14 +240,28 @@ def _eval_factor_block(factor, x_data, n, state, reduced):
     return val.astype(np.float64)[:, None]
 
 
-def _eval_term(term, x_data, n, state=None, intercept=True):
-    factors = _split_top_level(term, ":")
-    # treatment coding only for a lone categorical main effect under an
-    # intercept; interactions keep full dummies (see module docstring)
-    reduced = intercept and len(factors) == 1
+def _term_key(term):
+    """A term's identity: the set of its ``:``-factors."""
+    return frozenset(f for _, f in _split_top_level(term, ":"))
+
+
+def _reduced_factors(intercept, terms):
+    """Per term, per factor: whether the factor takes treatment coding,
+    i.e. whether the term without it is already in the model (the
+    intercept is the empty term; see the module docstring)."""
+    seen = {frozenset()} if intercept else set()
+    flags = []
+    for term in terms:
+        key = _term_key(term)
+        flags.append([key - {f} in seen for _, f in _split_top_level(term, ":")])
+        seen.add(key)
+    return flags
+
+
+def _eval_term(term, x_data, n, state, reduced):
     block = None
-    for _, factor in factors:
-        b = _eval_factor_block(factor, x_data, n, state, reduced)
+    for (_, factor), red in zip(_split_top_level(term, ":"), reduced):
+        b = _eval_factor_block(factor, x_data, n, state, red)
         if block is None:
             block = b
         else:  # column-wise product expansion (Khatri-Rao over columns)
@@ -285,8 +303,8 @@ def design_matrix(mean, inputs, state=None):
     blocks = []
     if intercept:
         blocks.append(np.ones((n, 1)))
-    for term in terms:
-        blocks.append(_eval_term(term, x_data, n, state, intercept))
+    for term, reduced in zip(terms, _reduced_factors(intercept, terms)):
+        blocks.append(_eval_term(term, x_data, n, state, reduced))
     if not blocks:
         return np.zeros((n, 0))
     dm = np.concatenate(blocks, axis=1)
@@ -307,11 +325,9 @@ def n_mean_params(mean, D, state=None):
     if isinstance(mean, str) and re.search(r"\bC\s*\(", mean):
         intercept, terms = parse_formula(mean)
         count = 1 if intercept else 0
-        for term in terms:
-            factors = _split_top_level(term, ":")
-            reduced = intercept and len(factors) == 1
+        for term, reduced in zip(terms, _reduced_factors(intercept, terms)):
             width = 1
-            for _, factor in factors:
+            for (_, factor), red in zip(_split_top_level(term, ":"), reduced):
                 parsed = _parse_categorical(factor)
                 if parsed is None:
                     if re.search(r"\bC\s*\(", factor):
@@ -338,7 +354,7 @@ def n_mean_params(mean, D, state=None):
                         "(gp._mean_state) or explicit C(..., "
                         "levels=[...])".format(factor)
                     )
-                width *= k - 1 if (reduced and k > 1) else k
+                width *= k - 1 if (red and k > 1) else k
             count += width
         return count
     probe = np.zeros((2, D))

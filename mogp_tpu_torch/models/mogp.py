@@ -9,7 +9,8 @@ group in :meth:`MultiOutputGP.fit`, one prediction per group in
 
 The public surface (``emulators`` list, ``get_indices_fit`` /
 ``get_indices_not_fit``, NaN predictions via ``allow_not_fit``) matches
-the reference.
+the reference.  Unlike the reference, ``standardize`` (one flag, or one
+per emulator) is taken and passed to each ``GaussianProcess``.
 """
 
 import hashlib
@@ -42,7 +43,8 @@ class MultiOutputGPBase:
 class MultiOutputGP(MultiOutputGPBase):
     """Multiple independent GP emulators over shared inputs.
 
-    ``device`` and ``dtype`` apply to every emulator (see
+    ``device`` and ``dtype`` apply to every emulator, and ``standardize``
+    (one flag or a list of one per emulator) to each (see
     :class:`GaussianProcess`).
     """
 
@@ -56,6 +58,7 @@ class MultiOutputGP(MultiOutputGPBase):
         nugget="adaptive",
         inputdict={},
         use_patsy=True,
+        standardize=False,
         device=None,
         dtype=None,
     ):
@@ -107,10 +110,15 @@ class MultiOutputGP(MultiOutputGPBase):
         assert isinstance(nugget, list)
         assert len(nugget) == self.n_emulators
 
+        if not isinstance(standardize, list):
+            standardize = self.n_emulators * [standardize]
+        assert len(standardize) == self.n_emulators
+
         self.emulators = [
-            GaussianProcess(inputs, single_target, m, k, p, n, device=device, dtype=dtype)
-            for (single_target, m, k, p, n) in zip(
-                targets, mean, kernel, priorslist, nugget
+            GaussianProcess(inputs, single_target, m, k, p, n, standardize=st,
+                            device=device, dtype=dtype)
+            for (single_target, m, k, p, n, st) in zip(
+                targets, mean, kernel, priorslist, nugget, standardize
             )
         ]
 
@@ -261,9 +269,13 @@ class MultiOutputGP(MultiOutputGPBase):
                     *args, unc=bool(unc), include_nugget=bool(include_nugget),
                     full_cov=bool(full_cov),
                 )
-            mean_out[global_idx] = mu.to("cpu", torch.float64).numpy()
+            # standardized emulators map back to their targets' scale
+            shift = np.array([em._t_mean for em in ems])[:, None]
+            scale = np.array([em._t_std for em in ems])[:, None]
+            mean_out[global_idx] = mu.to("cpu", torch.float64).numpy() * scale + shift
             if unc:
-                unc_out[global_idx] = var.to("cpu", torch.float64).numpy()
+                var_scale = scale[:, :, None] ** 2 if full_cov else scale**2
+                unc_out[global_idx] = var.to("cpu", torch.float64).numpy() * var_scale
 
         return PredictResult(
             mean=mean_out, unc=(unc_out if unc else None), deriv=None
@@ -278,33 +290,43 @@ class MultiOutputGP(MultiOutputGPBase):
         """Fit all emulators at given hyperparameters.
 
         ``thetas`` is one raw vector per emulator: a ``(n_emulators,
-        n_params)`` array or a list of arrays (or ``GPParams``).  One
-        batched ``gp_fit`` runs per signature group.
+        n_params)`` array or a list of arrays (or ``GPParams``).  Batched
+        ``gp_fit`` calls run per signature group (see :meth:`_fit_lanes`).
         """
         thetas = list(thetas)
         assert len(thetas) == self.n_emulators, "need one theta per emulator"
         self._fit_lanes(range(self.n_emulators), thetas)
 
     def _fit_lanes(self, indices, thetas):
-        """Fit emulators ``indices`` at ``thetas`` (same order), one
-        ``gp_fit`` per signature group and one host transfer per group."""
+        """Fit emulators ``indices`` at ``thetas`` (same order): per
+        signature group, batched ``gp_fit`` calls of at most
+        ``fitting._max_lanes`` lanes each (the device-memory budget), one
+        host transfer per call.  This is the one path of ``fit``,
+        ``load_mogp`` and the MAP refit.  At n >=
+        ``PROGRESSIVE_LADDER_MIN_N`` the jitter ladder is progressive, so
+        each lane stops at the rung a single ``GaussianProcess.fit`` stops
+        at; below it every rung is factored at once."""
+        from .fitting import _max_lanes  # fitting imports this module
+
         ems = [self.emulators[i] for i in indices]
         for group in self._groups(ems).values():
-            group_ems = [ems[i] for i in group]
-            raws = [em._coerce_theta(thetas[i]) for em, i in zip(group_ems, group)]
-            em0 = group_ems[0]
-            arts = gp_fit(
-                em0._tensor(np.stack(raws)),
-                cat_lanes([em._data for em in group_ems]),
-                em0.kernel,
-                em0.nugget_type,
-                progressive_ok=False,
-            )
-            summary = _host_summary(arts)
-            for lane, (em, raw) in enumerate(zip(group_ems, raws)):
-                em._set_fit_artifacts(
-                    raw, take_lanes(arts, slice(lane, lane + 1)), summary[lane]
+            step = _max_lanes(ems[group[0]])
+            for c0 in range(0, len(group), step):
+                chunk = group[c0:c0 + step]
+                chunk_ems = [ems[i] for i in chunk]
+                raws = [em._coerce_theta(thetas[i]) for em, i in zip(chunk_ems, chunk)]
+                em0 = chunk_ems[0]
+                arts = gp_fit(
+                    em0._tensor(np.stack(raws)),
+                    cat_lanes([em._data for em in chunk_ems]),
+                    em0.kernel,
+                    em0.nugget_type,
                 )
+                summary = _host_summary(arts)
+                for lane, (em, raw) in enumerate(zip(chunk_ems, raws)):
+                    em._set_fit_artifacts(
+                        raw, take_lanes(arts, slice(lane, lane + 1)), summary[lane]
+                    )
 
     def fit_emulator(self, index, theta):
         self.emulators[index].fit(theta)

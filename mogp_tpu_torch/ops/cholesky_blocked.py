@@ -10,12 +10,13 @@ untouched.  It takes the n above K2's shared-memory bound
 batched ladder above n = 340 (float32) / 240 (float64).
 
 * On a CUDA tensor it runs the panel loop of ``csrc/cholesky_blocked.cu``
-  (128-column panels, four launches each, plus one copy in and one NaN
-  pass out; built at first use by ``ops/_build.py``) on the current stream,
-  with a side stream of the library's own for the look-ahead, joined back
-  before it returns, and adds one to ``launches[variant]``: one count per
-  factorization, i.e. per panel loop.  It does not catch build or launch
-  errors and never falls back to the plain version.
+  (128-column panels, four launches each, three for v1, plus one copy in
+  and one NaN pass out; built at first use by ``ops/_build.py``) on the
+  current stream, with a side stream of the library's own for the
+  look-ahead, joined back before it returns, and adds one to
+  ``launches[variant]``: one count per factorization, i.e. per panel loop.
+  It does not catch build or launch errors and never falls back to the
+  plain version.
 * On a CPU tensor it calls :func:`cholesky_blocked_plain`, K2's plain
   version (``cholesky_ex`` with the ``info`` mask), which is what the CPU
   tests run.
@@ -23,12 +24,15 @@ batched ladder above n = 340 (float32) / 240 (float64).
   does: per matrix 0, or the 1-based column of the pivot that failed (the
   panel loop stops a matrix there, so the FLOPs a failed factorization ran
   can be counted).
-* The variants compute the same factor in other orders: rank-1 panel
-  steps (v1), 32-column micro-panels with tensor-core products (v2, the
-  route), 16-column micro-panels through the Newton inverse of their
-  diagonal tile (v3).  All three share the trailing update on tensor cores
-  (three TF32 passes in float32, DMMA in float64) and the look-ahead panel
-  loop; ``csrc/cholesky_blocked.cu`` says why.  Unlike the JAX v3, the
+* The variants compute the same factor in other orders: v1 sweeps each
+  panel, its diagonal block and the rows below together, with 128 rank-1
+  steps in one launch (one barrier a column; each block of the launch holds
+  the diagonal block and a tile of the rows in registers and factors the
+  diagonal block again); v2 (the route) takes 32-column micro-panels with
+  tensor-core products; v3 16-column micro-panels through the Newton
+  inverse of their diagonal tile.  All three share the trailing update on
+  tensor cores (three TF32 passes in float32, DMMA in float64) and the
+  look-ahead panel loop; ``csrc/cholesky_blocked.cu`` says why.  Unlike the JAX v3, the
   port's v3 takes float64 too.
 * :func:`tf32_round` and :func:`matmul_tf32` emulate the update's float32
   arithmetic on the CPU (``tests/test_torch_tf32_split.py``); no path of

@@ -2,11 +2,13 @@
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 -m mogp_tpu_torch.tools.chol_phases
+    python3 -m mogp_tpu_torch.tools.chol_phases [--csrc DIR]
 
-It builds ``csrc/cholesky_blocked.cu`` and ``csrc/cholesky_batched.cu`` a
-second time, with ``-DMOGP_PHASE_STAMPS`` (``csrc/chol_common.cuh``), into
-``build/phases/``: thread 0 of block 0 of each kernel then adds the
+It builds ``csrc/cholesky_blocked.cu`` and ``csrc/cholesky_batched.cu`` (or
+those of ``DIR``, another checkout's ``mogp_tpu_torch/csrc``, to measure it
+beside this one) a second time, with ``-DMOGP_PHASE_STAMPS``
+(``csrc/chol_common.cuh``), into ``build/phases/``: thread 0 of block 0 of
+each kernel then adds the
 ``clock64()`` cycles of each of its phases to a device counter.  Small C
 entry points, written here, launch one step of the blocked factorization at
 a time.  For float32 and float64 it prints, in microseconds at the SM clock
@@ -16,6 +18,10 @@ it measures, the phases of
   the four 32 x 32 tiles, the rows below them, the trailing updates,
   store), and its time from CUDA events less that of the copy that resets
   its input;
+* steps 1 and 2 of K3 (variant 1) at the first panel of a (1, 4096, 4096)
+  matrix (float32 also 8192): their time from CUDA events less that of the
+  reset, the kernels they launch (``torch.profiler``), and block 0's load,
+  rank-1 steps (also in cycles per column) and store;
 * the rows step and both launches of the update at the first panel of a
   (1, 4096, 4096) matrix (float32 also 8192), with the update's rate over
   the flops of its full tiles;
@@ -26,7 +32,9 @@ Block 0's phases are one block's view: blocks that share an SM with others
 take longer than alone.  Without a CUDA device it exits with an error.
 """
 
+import argparse
 import ctypes
+import hashlib
 import subprocess
 import sys
 import time
@@ -81,6 +89,15 @@ int ph_rows(void* o, void* st, int n, int base, int dbl, void* s) {
   cudaStream_t cs = (cudaStream_t)s;
   return dbl ? rows<double>(o, st, n, base, cs) : rows<float>(o, st, n, base, cs);
 }
+int ph_panel1(void* o, void* st, int n, int base, int dbl, void* s) {
+  cudaStream_t cs = (cudaStream_t)s;
+  if (dbl) {
+    Steps<double, 1>::prepare();
+    return (int)Steps<double, 1>::panel((double*)o, (int*)st, nullptr, 1, n, base, cs);
+  }
+  Steps<float, 1>::prepare();
+  return (int)Steps<float, 1>::panel((float*)o, (int*)st, nullptr, 1, n, base, cs);
+}
 int ph_update(void* o, void* st, int n, int base, int first, int dbl, void* s) {
   cudaStream_t cs = (cudaStream_t)s;
   if (dbl) {
@@ -114,27 +131,29 @@ int ph_read(long long* h) {
 '''
 
 
-def _build():
+def _build(csrc):
     from ..ops._build import NVCC_FLAGS, _nvcc
 
-    _OUT.mkdir(parents=True, exist_ok=True)
+    dest = _OUT / hashlib.sha1(str(csrc).encode()).hexdigest()[:12]
+    dest.mkdir(parents=True, exist_ok=True)
     procs = []
     for name, text in (("blocked", _BLOCKED), ("batched", _BATCHED)):
-        src = _OUT / "phases_{}.cu".format(name)
-        src.write_text(text % _CSRC)
+        src = dest / "phases_{}.cu".format(name)
+        src.write_text(text % csrc)
         cmd = [_nvcc(), *NVCC_FLAGS, "-DMOGP_PHASE_STAMPS", "-shared",
-               "-o", str(_OUT / "libphases_{}.so".format(name)), str(src)]
+               "-o", str(dest / "libphases_{}.so".format(name)), str(src)]
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                             text=True)))
     for cmd, proc in procs:
         out = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError("nvcc failed: {}\n{}".format(" ".join(cmd), out))
-    libs = [ctypes.CDLL(str(_OUT / "libphases_{}.so".format(n))) for n in ("blocked", "batched")]
+    libs = [ctypes.CDLL(str(dest / "libphases_{}.so".format(n))) for n in ("blocked", "batched")]
     V, I = ctypes.c_void_p, ctypes.c_int
     for lib in libs:
         lib.ph_read.argtypes = [V]
     libs[0].ph_diag.argtypes = libs[0].ph_rows.argtypes = [V, V, I, I, I, V]
+    libs[0].ph_panel1.argtypes = [V, V, I, I, I, V]
     libs[0].ph_update.argtypes = [V, V, I, I, I, I, V]
     libs[0].ph_clock_ghz.argtypes = [V]
     libs[1].mogp_cholesky_batched.argtypes = [V, V, I, I, I, V]
@@ -165,17 +184,64 @@ def _spd(B, n, dtype, seed):
     return (X @ X.transpose(-1, -2) + n * torch.eye(n, dtype=torch.float64, device="cuda")).to(dtype)
 
 
-def main():
+def _kernels_launched(fn):
+    """Names of the device kernels ``fn()`` launches, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+
+
+def _k3_panel(blocked, ghz, stream, dtype, n, reps):
+    """K3's steps 1 and 2 at the first panel of a (1, n, n) matrix."""
+    name, dbl = str(dtype)[6:], int(dtype == torch.float64)
+    A = torch.tril(_spd(1, n, dtype, 3))
+    out, status = A.clone(), torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def reset():
+        out.copy_(A)
+        status.zero_()
+
+    def panel():
+        _check(blocked.ph_panel1(out.data_ptr(), status.data_ptr(), n, 0, dbl, stream))
+
+    reset()
+    names = _kernels_launched(panel)
+    _check(blocked.ph_reset())
+    t_panel, t_reset = _us(lambda: (reset(), panel()), reps), _us(reset, reps)
+    h = (ctypes.c_longlong * 64)()
+    _check(blocked.ph_read(ctypes.addressof(h)))
+    calls = reps + 1
+    steps = h[6] + h[12] + h[13]  # the flush moves the lap counter, so 6 is the rest
+    print("{} n={} K3 panel (steps 1-2 at base 0): {:.3f} us; {} launch(es): {}; block 0 (us "
+          "per call): load {:.3f} rank-1 steps {:.3f} (warp 0's work {:.3f}, barrier waits "
+          "{:.3f}) store {:.3f}; {:.1f} cycles per column".format(
+              name, n, t_panel - t_reset, len(names), names, h[5] / calls / ghz / 1e3,
+              steps / calls / ghz / 1e3, h[12] / calls / ghz / 1e3, h[13] / calls / ghz / 1e3,
+              h[7] / calls / ghz / 1e3, steps / calls / 128))
+    if int(status.item()) != 0:
+        raise RuntimeError("K3's panel reported a bad pivot on an SPD matrix")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--csrc", type=Path, default=_CSRC,
+                    help="the kernel sources to build (default: this checkout's)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chol_phases: no CUDA device", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    blocked, batched = _build()
+    blocked, batched = _build(args.csrc.resolve())
     ghz = ctypes.c_double()
     _check(blocked.ph_clock_ghz(ctypes.byref(ghz)))
     ghz = ghz.value
-    print("chol_phases: {} ({} s to build); SM clock {} GHz".format(
-        torch.cuda.get_device_name(0), time.perf_counter() - t0, ghz))
+    print("chol_phases: {} ({} s to build from {}); SM clock {} GHz".format(
+        torch.cuda.get_device_name(0), time.perf_counter() - t0, args.csrc, ghz))
     stream = torch.cuda.current_stream().cuda_stream
     reps = 20
 
@@ -203,6 +269,7 @@ def main():
             name, t_diag - t_reset, phases(blocked, [(0, "load"), (1, "tiles"), (2, "rows"),
                                                      (3, "update"), (4, "store")], reps + 1)))
         for n in ((4096, 8192) if dtype == torch.float32 else (4096,)):
+            _k3_panel(blocked, ghz, stream, dtype, n, reps)
             A = torch.tril(_spd(1, n, dtype, 1))
             out = A.clone()
             _check(blocked.ph_diag(out.data_ptr(), status.data_ptr(), n, 0, dbl, stream))

@@ -18,15 +18,28 @@ from ..models.mogp import MultiOutputGP
 __all__ = ["atomic_savez", "save_gp", "load_gp", "save_mogp", "load_mogp"]
 
 
+def _npz_path(path):
+    """The file ``np.savez`` writes for ``path``: ``.npz`` is appended
+    when missing."""
+    path = str(path)
+    return path if path.endswith(".npz") else path + ".npz"
+
+
 def atomic_savez(path, **payload):
     """Atomic ``.npz`` write: temp file + ``os.replace``.  A missing
     ``.npz`` extension is appended, as ``np.savez`` does."""
-    path = str(path)
-    if not path.endswith(".npz"):
-        path += ".npz"
+    path = _npz_path(path)
     tmp = "{}.tmp.npz".format(path)
     np.savez(tmp, **payload)
     os.replace(tmp, path)
+
+
+def _load_npz(path):
+    """Open a checkpoint by the rule ``atomic_savez`` writes it under: a
+    path that exists as given opens as it is, any other one with
+    ``.npz`` appended (``mogp_tpu`` opens only the path as given)."""
+    path = str(path)
+    return np.load(path if os.path.exists(path) else _npz_path(path), allow_pickle=False)
 
 
 def _gp_config(gp):
@@ -36,6 +49,9 @@ def _gp_config(gp):
         "nugget": (
             gp._nugget_value if gp.nugget_type == "fixed" else gp.nugget_type
         ),
+        # mogp_tpu stores no "standardize", so its standardized GPs come back
+        # fit on the raw targets; files without the key load unstandardized
+        "standardize": gp._standardize,
     }
 
 
@@ -57,7 +73,7 @@ def save_gp(gp, filename):
 
 def load_gp(filename, device=None, dtype=None):
     """Restore a GP checkpoint onto ``device``; re-fits if it was fit."""
-    f = np.load(filename, allow_pickle=False)
+    f = _load_npz(filename)
     config = json.loads(str(f["config"]))
     gp = GaussianProcess(
         f["inputs"],
@@ -65,6 +81,7 @@ def load_gp(filename, device=None, dtype=None):
         mean=config["mean"],
         kernel=config["kernel"],
         nugget=config["nugget"],
+        standardize=config.get("standardize", False),
         device=device,
         dtype=dtype,
     )
@@ -92,8 +109,8 @@ def save_mogp(mgp, filename):
 
 def load_mogp(filename, device=None, dtype=None):
     """Restore a MultiOutputGP checkpoint onto ``device``; the fitted
-    emulators are re-fit in one batched fit per signature group."""
-    f = np.load(filename, allow_pickle=False)
+    emulators are re-fit as ``MultiOutputGP.fit`` fits them."""
+    f = _load_npz(filename)
     configs = [json.loads(str(c)) for c in f["configs"]]
     mgp = MultiOutputGP(
         f["inputs"],
@@ -101,6 +118,7 @@ def load_mogp(filename, device=None, dtype=None):
         mean=[c["mean"] for c in configs],
         kernel=[c["kernel"] for c in configs],
         nugget=[c["nugget"] for c in configs],
+        standardize=[c.get("standardize", False) for c in configs],
         device=device,
         dtype=dtype,
     )

@@ -128,3 +128,112 @@ def test_wrapper_checks_its_input():
         kbl.cholesky_blocked(torch.eye(4).expand(2, 4, 4), "v1")
     with pytest.raises(TypeError):
         kbl.cholesky_blocked(torch.eye(3, dtype=torch.float16)[None], "v1")
+
+
+# ---------------------------------------------------------------------------
+# A CPU rehearsal of K3's float32 arithmetic (csrc/cholesky_blocked.cu,
+# blk_panel1_kernel): each panel is swept by 128 rank-1 steps over the
+# diagonal block and one tile of rows below it at a time, the diagonal
+# block factored again for every tile; the trailing update in three TF32
+# passes.  It must meet chip_smoke.py's rule for the ill-conditioned K: its
+# error against the float64 factor within 2x that of float32 cholesky_ex.
+
+K3_ROWS = 64  # rows below the diagonal block per block of the float32 kernel
+ILL_RATIO = 2.0  # chip_smoke.py's
+
+
+def _fma(a, b, c):
+    """``a b + c`` of float32 tensors rounded once, as ``fmaf`` rounds it
+    (the product is exact in float64; the sum rounds there first, which
+    differs from one rounding only at rare ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _k3_sweep(P, w):
+    """The kernel's rank-1 sweep of the float32 panel ``P`` ``(128 + rows,
+    128)``: the diagonal block's lower triangle in its first 128 rows (zero
+    above), the tile's rows after.  Step k: r = rsqrt(d_k); every row i > k
+    takes a_ic += -(a_ik r)(a_ck r) for c > k; then column k is scaled by
+    r.  Returns ``(P, 0)``, or ``(None, k + 1)`` at a bad pivot."""
+    P = P.clone()
+    ids = torch.arange(P.shape[0])
+    cols = torch.arange(P.shape[1])
+    for k in range(w):
+        cur = P[:, k].clone()
+        d = cur[k]
+        if not (torch.isfinite(d) and d > 0):
+            return None, k + 1
+        r = torch.rsqrt(d)
+        v = torch.where(cols > k, cur[:P.shape[1]] * r, torch.zeros_like(r))
+        act = ids > k
+        P[act] = _fma(-(cur[act] * r)[:, None], v[None, :], P[act])
+        P[:, k] = P[:, k] * r
+    return P, 0
+
+
+def _k3_cholesky(A, rows=K3_ROWS):
+    """Lower factor of the float32 ``A`` ``(n, n)`` in K3's arithmetic and
+    launch structure; asserts that every tile's copy of each diagonal block
+    comes out the same."""
+    n = A.shape[0]
+    A = torch.tril(A)
+    for base in range(0, n, kbl.PANEL):
+        e = min(base + kbl.PANEL, n)
+        w = e - base
+        tiles = max(1, -(-(n - e) // rows))
+        copies = []
+        for t in range(tiles):
+            r0 = e + t * rows
+            nr = max(0, min(rows, n - r0))
+            P = torch.zeros(kbl.PANEL + rows, kbl.PANEL)
+            P[:w, :w] = A[base:e, base:e]
+            P[kbl.PANEL:kbl.PANEL + nr, :w] = A[r0:r0 + nr, base:e]
+            P, info = _k3_sweep(P, w)
+            assert info == 0, "pivot {} failed".format(base + info)
+            copies.append(torch.tril(P[:w, :w]))
+            A[r0:r0 + nr, base:e] = P[kbl.PANEL:kbl.PANEL + nr, :w]
+        assert all(torch.equal(c, copies[0]) for c in copies)
+        A[base:e, base:e] = copies[0]
+        if e < n:
+            L21 = A[e:, base:e]
+            A[e:, e:] = torch.tril(A[e:, e:] - kbl.matmul_tf32(L21, L21.T))
+    return A
+
+
+def test_k3_sweep_matches_the_jax_panel_step(exp_chol):
+    """One panel swept as the kernel sweeps it equals ``chol_blocked`` on
+    a matrix of one panel, to float32 rounding."""
+    A = _batch_with_bad_lane()[0][:100, :100]
+    ref = np.asarray(exp_chol.chol_blocked(jnp.asarray(A[None]), chunk=1, interpret=True))[0]
+    P = torch.zeros(kbl.PANEL + K3_ROWS, kbl.PANEL)
+    P[:100, :100] = torch.tril(torch.as_tensor(A))
+    got, info = _k3_sweep(P, 100)
+    assert info == 0
+    assert_allclose(torch.tril(got[:100, :100]).numpy(), ref, rtol=0,
+                    atol=RTOL_OF_MAX * float(np.abs(ref).max()))
+    bad = P.clone()
+    bad[40, 40] = -1.0
+    assert _k3_sweep(bad, 100) == (None, 41)
+
+
+def test_k3_arithmetic_meets_the_ill_conditioned_rule():
+    import mogp_tpu_torch
+    from mogp_tpu_torch.tools.large_n import jittered_K, make_problem
+
+    x, y, theta = make_problem(512)
+    gp = mogp_tpu_torch.GaussianProcess(x, y, nugget="adaptive", device="cpu",
+                                        dtype=torch.float32)
+    gp.fit(theta)
+    K = jittered_K(gp, theta)[0]
+    truth = torch.linalg.cholesky(K.double())
+
+    def err(L):
+        return ((L.double() - truth).abs().max() / truth.abs().max()).item()
+
+    e_ex = err(torch.linalg.cholesky_ex(K)[0])
+    L = _k3_cholesky(K)
+    e3 = err(L)
+    assert torch.isfinite(L).all() and e_ex > 0
+    assert e3 <= ILL_RATIO * e_ex, (e3, e_ex)
+    Ld = L.double()
+    assert ((Ld @ Ld.T - K.double()).abs().max() / K.abs().max()).item() <= 1e-5
