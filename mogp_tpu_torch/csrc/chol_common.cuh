@@ -16,8 +16,12 @@
 // and 13: warp 0's work before each barrier and its waits at it, summed in
 // registers by MOGP_LAP and added once by MOGP_LAP_FLUSH), 7 store;
 // the rows step 8 load, 9 products, 10 substitutions, 11 store; the update
-// 16 waiting for stages, 17 products, 18 epilogue.  In
-// the library's own build the macros are empty.
+// 16 waiting for stages, 17 products, 18 epilogue; variant 3's panel step
+// (block 0's warp 0, which runs the chain of tiles) 19 load, 25 the next
+// tile's rank-16 update, 24 its rank-1 factorization, 20 its Newton
+// inverse, 21 its rows' product M X^T, 22 the wait at the micro-panel's
+// barrier for the other warps' products and updates, 23 store.  In the
+// library's own build the macros are empty.
 #ifdef MOGP_PHASE_STAMPS
 __device__ long long mogp_phase_cycles[64];
 #define MOGP_PHASE_BEGIN() long long mogp_phase_last_ = clock64()

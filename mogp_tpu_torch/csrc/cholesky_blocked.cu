@@ -21,18 +21,21 @@
 //   micro-panels (rank-8 on the TPU; 32 columns here, see below);
 // * variant 3, K5 (chol_blocked_v3, :411): 16-column micro-panels whose
 //   16 x 16 diagonal tile is factored and then inverted by Newton
-//   iteration, X <- X (2I - L X), 4 steps, so that the panel rows come
-//   from the product X M and all O(n^3) work is products.
+//   iteration, X <- X (2I - L X), 4 steps, so that the micro-panel's rows
+//   come from the product with X, the rest of the panel takes a rank-16
+//   product, and all O(n^3) work is products.
 //
 // On an H100 one block cannot hold a matrix of this size, so each panel is
 // a few launches over the batch, and the panel loop runs on the host (n /
 // 128 panels):
 //
-// 1. diag (one block per matrix): the 128 x 128 diagonal block, in shared
-//    memory, factored by the variant's micro-panel scheme.  A bad pivot
-//    sets the matrix's status word.
-// 2. rows (blocks of rows x matrices): L21 = A21 L11^-T, the rows below
-//    the diagonal block.
+// 1. diag: the 128 x 128 diagonal block, in shared memory, factored by the
+//    variant's micro-panel scheme.  A bad pivot sets the matrix's status
+//    word.
+// 2. rows: L21 = A21 L11^-T, the rows below the diagonal block.  Variant 2
+//    launches 1 and 2 apart (one block per matrix, then blocks of rows x
+//    matrices); variants 1 and 3 as one launch over blocks of rows x
+//    matrices, each block factoring the diagonal block again (below).
 // 3. update (lower tiles x matrices, flattened into blockIdx.x): A22 -=
 //    L21 L21^T, shared by the variants.  Only tiles on or below the
 //    diagonal; within a diagonal tile only the lower triangle is written.
@@ -103,9 +106,25 @@
 // broadcast per column slot, one read per row slot), the FMAs, and one
 // warp's pivot, scaling and store before the barrier.
 //
-// Variant 3 keeps its own diag and rows steps (blk_diag_kernel,
-// blk_rows_kernel: 16-column micro-panels, 24 barriers per panel) and
-// shares the update and the look-ahead loop.
+// Variant 3 (K5) runs steps 1 and 2 as one launch too, blk_panel3_kernel,
+// on variant 1's pattern (the grid over tiles of rows, cp.async staging,
+// the diagonal block factored again by every block, the last loader writing
+// it), with the JAX kernel's arithmetic: per 16-column micro-panel, (a) the
+// 16 x 16 tile is factored with rank-1 steps (factor_tile) and inverted by
+// 4 Newton steps; (b) the micro-panel's columns of every row below the tile
+// are the product M X^T; (c) the panel's columns right of it take the
+// rank-16 update V V^T.  (b) and (c) are spread over all warps in 16 x 16
+// tiles on tensor cores (the update's arithmetic, above).  Warp 0 takes the
+// tiles the chain needs, (b) and (c) for the next tile, and goes straight
+// on to (a) for it while the other warps finish (b) and (c): one block-wide
+// barrier a micro-panel.  What bounds it is that chain, one warp's: per
+// tile 16 dependent pivots (~180 cycles each) and the Newton steps, whose
+// 6 small products (the first step, from a diagonal X0, is two scalings)
+// run in FFMA across the warp: with mma.sync, whose fragments go through
+// shared memory between products, they took 1.6 times as long on an H100
+// (PERF.md).  Only 16 x 16 tiles are inverted, as in the JAX kernel, never
+// L11 (see the rows step above).  Variants 1 and 3 share variant 2's update
+// and the look-ahead loop.
 //
 // The NaN contract across launches: status[b] (int, zeroed by the caller)
 // is set by the diag step to the 1-based column of the failing pivot (the
@@ -133,14 +152,11 @@ using mogp::good_pivot;
 using mogp::load4;
 
 constexpr int kNB = 128;           // panel width
-constexpr int kLD = kNB + 1;       // v3 row stride: column walks hit distinct banks
-constexpr int kLDS = kNB + 4;      // v2 row stride: fragment rows g, columns t hit banks 4g + t
-constexpr int kRowTile = 32;       // v3: rows of L21 per block of the rows step
+constexpr int kLD = kNB + 1;       // v1 row stride: column walks hit distinct banks
+constexpr int kLDS = kNB + 4;      // v2, v3 row stride: fragment rows g, columns t hit banks 4g + t
 constexpr int kRowTile2 = 64;      // v2: rows of L21 per block of the rows step
 constexpr int kMP = 32;            // v2: micro-panel width
-constexpr int kDiagThreads = 512;  // the serial step: as many warps as help
 constexpr int kPanelThreads = 256;
-constexpr int kMaxMB = 16;         // v3's micro-panel
 constexpr int kBM = 128;           // update tile, 128 x 128 (equal to the panel width)
 constexpr int kFirstBM = 32;       // rows of the update's tiles in the next panel's column block
 constexpr int kUpdThreads = 256;   // 8 warps, 2 x 4 over an update tile
@@ -289,6 +305,22 @@ __device__ __forceinline__ void sub_acc(T* C, int ldc, const T (&acc)[MI][NI][TC
   }
 }
 
+// C = acc for a warp tile whose corner is C (row stride ldc)
+template <typename T, int MI, int NI>
+__device__ __forceinline__ void store_acc(T* C, int ldc, const T (&acc)[MI][NI][TC<T>::kC]) {
+  using M = TC<T>;
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+#pragma unroll
+      for (int e = 0; e < M::kC; ++e) {
+        C[(i * M::kM + M::row(e)) * ldc + j * M::kN + M::col(e)] = acc[i][j][e];
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // cp.async: global -> shared without registers; src_size 0 zero-fills
 // ---------------------------------------------------------------------------
@@ -394,17 +426,11 @@ blk_finish_kernel(T* __restrict__ out, const int* __restrict__ status, int n, in
 // column k goes to the warp's 32-element scratch col and every lane reads
 // it back in 16-byte broadcasts.  The update is not masked: the entries of
 // a lane above its diagonal are never read back.  The reciprocals of the
-// diagonal go to dinv.  Sets *bad to the pivot's 1-based column in the tile
-// and stops on a pivot that is not positive and finite; every lane reads
-// the same pivot, so the warp exits together.
-//
-// INV (variant 3) then inverts the factored tile by Newton iteration from
-// X0 = diag(1 / d): X <- X (2I - L X), in registers (lane r holds row r of
-// X), into X (mb rows of kMaxMB).  The error I - L X is strictly lower
-// triangular and squares each step, so ceil(log2 16) = 4 steps are exact
-// in exact arithmetic (tools/exp_chol.py:313-327).
-template <typename T, int MB, bool INV, int LD>
-__device__ __forceinline__ void factor_tile(T* D, T* dinv, T* X, T* col, int mb, int* bad) {
+// diagonal go to dinv.  On a pivot that is not positive and finite it sets
+// *bad to the pivot's 1-based column in the tile and returns false; every
+// lane reads the same pivot, so the warp returns together.
+template <typename T, int MB, int LD>
+__device__ __forceinline__ bool factor_tile(T* D, T* dinv, T* col, int mb, int* bad) {
   const int l = threadIdx.x % 32;
   T a[MB];
   T inv_d = T(0);  // lane l: 1 / L[l][l]
@@ -416,7 +442,7 @@ __device__ __forceinline__ void factor_tile(T* D, T* dinv, T* X, T* col, int mb,
     if (k >= mb) break;
     if (!good_pivot(d)) {
       if (l == 0) *bad = k + 1;
-      return;
+      return false;
     }
     const T r = dev_rsqrt(d);
     if (l == k) inv_d = r;
@@ -446,106 +472,7 @@ __device__ __forceinline__ void factor_tile(T* D, T* dinv, T* X, T* col, int mb,
     }
     dinv[l] = inv_d;
   }
-  if (INV) {
-#pragma unroll
-    for (int k = 0; k < MB; ++k) {
-      if (k > l) a[k] = T(0);  // row l of L, its upper part zero again
-    }
-    T x[MB], p[MB];
-#pragma unroll
-    for (int c = 0; c < MB; ++c) x[c] = (c == l && l < mb) ? T(1) / a[c] : T(0);
-#pragma unroll
-    for (int it = 0; it < 4; ++it) {
-#pragma unroll
-      for (int c = 0; c < MB; ++c) p[c] = T(0);
-#pragma unroll
-      for (int k = 0; k < MB; ++k) {  // P = L X, row l
-#pragma unroll
-        for (int c = 0; c < MB; ++c) {
-          p[c] = dev_fma(a[k], __shfl_sync(0xffffffffu, x[c], k), p[c]);
-        }
-      }
-      T q[MB];
-#pragma unroll
-      for (int c = 0; c < MB; ++c) q[c] = T(2) * x[c];
-#pragma unroll
-      for (int k = 0; k < MB; ++k) {  // X (2I - P), row l
-#pragma unroll
-        for (int c = 0; c < MB; ++c) {
-          q[c] = dev_fma(-x[k], __shfl_sync(0xffffffffu, p[c], k), q[c]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < MB; ++c) x[c] = q[c];
-    }
-    if (l < mb) {
-#pragma unroll
-      for (int c = 0; c < MB; ++c) X[l * kMaxMB + c] = x[c];
-    }
-  }
-}
-
-// The rank-mb update of row R by the micro-panel (columns 0..mb of R and of
-// the rows C(c) = C0 + c * kLD): R[mb + c] -= sum_k v[k] C(c)[k] for c in
-// [0, cols) (cols <= 128), with v[k] = R[k] already in registers; one warp,
-// each lane four columns at once (independent FMA chains).  Variant 3.
-template <typename T, int MB>
-__device__ __forceinline__ void rank_update_row(T* R, const T* C0, const T (&v)[MB], int mb,
-                                                int cols) {
-  const int l = threadIdx.x % 32;
-  T acc[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int c = l + 32 * q;
-    acc[q] = c < cols ? R[mb + c] : T(0);
-  }
-#pragma unroll
-  for (int k = 0; k < MB; ++k) {
-    if (k < mb) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = l + 32 * q;
-        if (c < cols) acc[q] = dev_fma(-v[k], C0[c * kLD + k], acc[q]);
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int c = l + 32 * q;
-    if (c < cols) R[mb + c] = acc[q];
-  }
-}
-
-// One row's mb micro-panel entries R[0..mb), times L_D^-T, into v: the
-// product with the tile's inverse X (INV, variant 3), or forward
-// substitution against the factored tile D with the reciprocals dinv of its
-// diagonal.
-template <typename T, int MB, bool INV>
-__device__ __forceinline__ void solve_vals(const T* R, const T* D, const T* dinv, const T* X,
-                                           int mb, T (&v)[MB]) {
-#pragma unroll
-  for (int k = 0; k < MB; ++k) v[k] = k < mb ? R[k] : T(0);
-  if (INV) {
-#pragma unroll
-    for (int k = MB - 1; k >= 0; --k) {
-      if (k < mb) {
-        T acc = T(0);
-#pragma unroll
-        for (int i = 0; i <= k; ++i) acc = dev_fma(X[k * kMaxMB + i], v[i], acc);
-        v[k] = acc;  // v[i > k] are done, v[i <= k] still the inputs
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < MB; ++k) {
-      if (k < mb) {
-        T acc = v[k];
-#pragma unroll
-        for (int i = 0; i < k; ++i) acc = dev_fma(-v[i], D[k * kLD + i], acc);
-        v[k] = acc * dinv[k];
-      }
-    }
-  }
+  return true;
 }
 
 // Variant 2: R[0..32) <- R L_D^-T by one thread, in registers: forward
@@ -568,82 +495,10 @@ __device__ __forceinline__ void subst_row32(T* R, const T* D, const T* dinv) {
 }
 
 // ---------------------------------------------------------------------------
-// Step 1: the diagonal block
+// Variant 2, step 1: the diagonal block
 // ---------------------------------------------------------------------------
 
-// Variant 3: factor the diagonal block at (base, base), width w = min(128,
-// n - base), one block per matrix, in micro-panels of MB columns.
-// Variant 3 also leaves the inverse of each 16 x 16 diagonal tile in inv
-// (kNB x kMaxMB per matrix) for step 2.
-template <typename T, int MB, bool INV>
-__global__ void __launch_bounds__(kDiagThreads)
-blk_diag_kernel(T* __restrict__ out, int* __restrict__ status, T* __restrict__ inv, int n,
-                int base) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* S = reinterpret_cast<T*>(smem_raw);  // kNB x kLD
-  T* dinv = S + kNB * kLD;                // kNB reciprocals of the diagonal
-  T* Xi = dinv + kNB;                     // INV: kNB x kMaxMB
-  __shared__ int bad;
-  __shared__ __align__(16) T col[32];     // factor_tile's column scratch
-  const int lane = blockIdx.x;
-  if (status[lane]) return;
-  const int w = min(kNB, n - base);
-  T* A = out + mat_offset(lane, n) + static_cast<size_t>(base) * n + base;
-  const int t = threadIdx.x;
-  // the upper triangle of the block is zero in out: load it all, so that
-  // the loads do not wait on a data-dependent branch
-#pragma unroll 8
-  for (int e = t; e < kNB * kNB; e += kDiagThreads) {
-    const int r = e / kNB, c = e % kNB;
-    if (r < w && c < w) S[r * kLD + c] = A[static_cast<size_t>(r) * n + c];
-  }
-  if (t == 0) bad = 0;
-  __syncthreads();
-
-  for (int j0 = 0; j0 < w; j0 += MB) {
-    const int mb = min(MB, w - j0);
-    T* D = S + j0 * kLD + j0;
-    if (t < 32) {
-      factor_tile<T, MB, INV, kLD>(D, dinv + j0, Xi + j0 * kMaxMB, col, mb, &bad);
-    }
-    __syncthreads();
-    if (bad) {  // read by every thread after the barrier: a uniform exit
-      if (t == 0) status[lane] = base + j0 + bad;
-      return;
-    }
-    const int below = w - j0 - mb;
-    for (int r = t; r < below; r += kDiagThreads) {
-      T* R = S + (j0 + mb + r) * kLD + j0;
-      T v[MB];
-      solve_vals<T, MB, INV>(R, D, dinv + j0, Xi + j0 * kMaxMB, mb, v);
-#pragma unroll
-      for (int k = 0; k < MB; ++k) {
-        if (k < mb) R[k] = v[k];
-      }
-    }
-    __syncthreads();
-    // rank-mb update of the block's trailing lower triangle: a warp per row
-    for (int r = t / 32; r < below; r += kDiagThreads / 32) {
-      T* R = S + (j0 + mb + r) * kLD + j0;
-      T v[MB];
-#pragma unroll
-      for (int k = 0; k < MB; ++k) v[k] = k < mb ? R[k] : T(0);
-      rank_update_row<T, MB>(R, S + (j0 + mb) * kLD + j0, v, mb, r + 1);
-    }
-    __syncthreads();
-  }
-
-  for (int e = t; e < kNB * kNB; e += kDiagThreads) {
-    const int r = e / kNB, c = e % kNB;
-    if (c <= r && r < w) A[static_cast<size_t>(r) * n + c] = S[r * kLD + c];
-  }
-  if (INV) {
-    T* I = inv + static_cast<size_t>(lane) * kNB * kMaxMB;
-    for (int e = t; e < w * kMaxMB; e += kDiagThreads) I[e] = Xi[e];
-  }
-}
-
-// Variant 2: the diagonal block in 32-column micro-panels, 3 barriers
+// The diagonal block in 32-column micro-panels, 3 barriers
 // each: (a) warp 0 factors the 32 x 32 tile in registers; (b) a thread per
 // row solves the rows of the block below it (up to 96); (c) all warps
 // apply the rank-32 update of the block's trailing lower triangle on
@@ -685,7 +540,7 @@ blk_diag32_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
   for (int j0 = 0; j0 < w; j0 += kMP) {
     const int mb = min(kMP, w - j0);
     T* D = S + j0 * kLDS + j0;
-    if (warp == 0) factor_tile<T, kMP, false, kLDS>(D, dinv + j0, nullptr, col, mb, &bad);
+    if (warp == 0) factor_tile<T, kMP, kLDS>(D, dinv + j0, col, mb, &bad);
     __syncthreads();
     MOGP_PHASE(1);
     if (bad) {  // read by every thread after the barrier: a uniform exit
@@ -725,70 +580,10 @@ blk_diag32_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
 }
 
 // ---------------------------------------------------------------------------
-// Step 2: the rows below the diagonal block
+// Variant 2, step 2: the rows below the diagonal block
 // ---------------------------------------------------------------------------
 
-// Variant 3: L21 = A21 L11^-T for the 32 rows of this block below a full
-// diagonal block (rows exist below a panel only when it is 128 wide).
-template <typename T, int MB, bool INV>
-__global__ void __launch_bounds__(kPanelThreads)
-blk_rows_kernel(T* __restrict__ out, const int* __restrict__ status,
-                const T* __restrict__ inv, int n, int base, int tiles) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ls = reinterpret_cast<T*>(smem_raw);  // kNB x kLD, L11
-  T* Xs = Ls + kNB * kLD;                  // kRowTile x kLD, this block's rows
-  T* dinv = Xs + kRowTile * kLD;           // kNB reciprocals of L11's diagonal
-  T* Xi = dinv + kNB;                      // INV: kNB x kMaxMB
-  const int lane = blockIdx.x / tiles;
-  if (status[lane]) return;
-  const int r0 = base + kNB + (blockIdx.x % tiles) * kRowTile;
-  const int rows = min(kRowTile, n - r0);
-  T* M = out + mat_offset(lane, n);
-  const int t = threadIdx.x;
-#pragma unroll 8
-  for (int e = t; e < kNB * kNB; e += kPanelThreads) {  // upper triangle zero in out
-    const int r = e / kNB, c = e % kNB;
-    Ls[r * kLD + c] = M[static_cast<size_t>(base + r) * n + base + c];
-  }
-#pragma unroll 4
-  for (int e = t; e < kRowTile * kNB; e += kPanelThreads) {
-    const int r = e / kNB, c = e % kNB;
-    if (r < rows) Xs[r * kLD + c] = M[static_cast<size_t>(r0 + r) * n + base + c];
-  }
-  if (t < kNB) dinv[t] = T(1) / M[static_cast<size_t>(base + t) * n + base + t];
-  if (INV) {
-    const T* I = inv + static_cast<size_t>(lane) * kNB * kMaxMB;
-    for (int e = t; e < kNB * kMaxMB; e += kPanelThreads) Xi[e] = I[e];
-  }
-  __syncthreads();
-
-  // Rows are independent: a warp owns each of its rows for the whole loop,
-  // every lane solving the row's micro-panel (the same values) and then
-  // applying it to its own columns, so only the warp synchronizes.
-  const int l = t % 32;
-  for (int j0 = 0; j0 < kNB; j0 += MB) {
-    for (int r = t / 32; r < rows; r += kPanelThreads / 32) {
-      T* R = Xs + r * kLD + j0;
-      T v[MB];
-      solve_vals<T, MB, INV>(R, Ls + j0 * kLD + j0, dinv + j0, Xi + j0 * kMaxMB, MB, v);
-      __syncwarp();  // every lane has read the row before lane k overwrites R[k]
-#pragma unroll
-      for (int k = 0; k < MB; ++k) {
-        if (l == k) R[k] = v[k];
-      }
-      rank_update_row<T, MB>(R, Ls + (j0 + MB) * kLD + j0, v, MB, kNB - j0 - MB);
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  for (int e = t; e < rows * kNB; e += kPanelThreads) {
-    const int r = e / kNB, c = e % kNB;
-    M[static_cast<size_t>(r0 + r) * n + base + c] = Xs[r * kLD + c];
-  }
-}
-
-// Variant 2: L21 = A21 L11^-T for the 64 rows of this block, micro-panel by
+// L21 = A21 L11^-T for the 64 rows of this block, micro-panel by
 // micro-panel: X[:, J] -= X[:, <J] L11[J, <J]^T on tensor cores (8 warps,
 // 16 x 16 tiles of the 64 x 32 block), then X[:, J] <- X[:, J] L11[J, J]^-T
 // by substitution, a thread per row.
@@ -1032,6 +827,257 @@ swept:
 }
 
 // ---------------------------------------------------------------------------
+// Variant 3: steps 1 and 2 in one launch, 16-column micro-panels through the
+// Newton inverse of their diagonal tile, the products on tensor cores
+// ---------------------------------------------------------------------------
+
+// A block's panel, as variant 1's: the 128 rows of the diagonal block and
+// kRT rows below it, in shared memory at row stride kLDS.  Eight warps; the
+// micro-panel's 16 x 16 tiles of products are one warp each.
+template <typename T>
+struct Panel3 {
+  static constexpr int kThreads = 256;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kRT = sizeof(T) == 4 ? 64 : 32;
+  static constexpr int kRows = kNB + kRT;
+  static constexpr int kMB = 16;   // micro-panel width
+  static constexpr int kXLD = 20;  // row stride of X and E: (b)'s fragments of X hit distinct banks
+  static constexpr size_t kSmem = static_cast<size_t>(kRows) * kLDS * sizeof(T);  // the staging
+};
+
+// One warp: X = L^-1 for the factored 16 x 16 tile D (row stride kLDS; its
+// mb x mb lower triangle, the rest taken as zero) by 4 Newton steps X <- X
+// (2I - L X) from X0 = diag(dinv), the iteration of tools/exp_chol.py:313-327.
+// The error I - L X is strictly lower triangular and squares each step, so
+// ceil(log2 16) = 4 steps are exact in exact arithmetic; X stays lower
+// triangular (its zeros are exact).  Step 1 is two scalings, X0 being
+// diagonal; steps 2-4 are two 16 x 16 x 16 products each, in FMA: lane l
+// holds row r = l % 16 of L in registers and forms columns 8h..8h+8 (h = l /
+// 16) of row r of each product, reading the other factor's rows from
+// shared memory in broadcasts.  E = 2I - L X goes through the scratch E
+// (16 x kXLD); X comes out in Xs (16 x kXLD).
+template <typename T>
+__device__ __forceinline__ void newton_inverse(const T* D, const T* dinv, T* E, T* Xs, int mb) {
+  constexpr int kLd = Panel3<T>::kXLD;
+  const int l = threadIdx.x % 32, r = l % 16, h = l / 16;
+  T* Xr = Xs + r * kLd + 8 * h;  // this lane's part of X and E
+  T* Er = E + r * kLd + 8 * h;
+  __syncwarp();  // the factored tile and dinv, written by other lanes
+  T Lr[16], x[8];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) Lr[k] = r < mb && k <= r ? D[r * kLDS + k] : T(0);
+  const T dr = r < mb ? dinv[r] : T(0);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {  // step 1: X1 = X0 (2I - L X0)
+    const int j = 8 * h + c;
+    const T dj = j < mb ? dinv[j] : T(0);
+    x[c] = dr * ((r == j ? T(2) : T(0)) - (h ? Lr[8 + c] : Lr[c]) * dj);
+    Xr[c] = x[c];
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int it = 1; it < 4; ++it) {
+    T p[8], v[2][4];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) p[c] = T(0);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {  // L X
+      load4(Xs + k * kLd + 8 * h, v[0]);
+      load4(Xs + k * kLd + 8 * h + 4, v[1]);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) p[c] = dev_fma(Lr[k], v[c / 4][c % 4], p[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) Er[c] = (r == 8 * h + c ? T(2) : T(0)) - p[c];
+    __syncwarp();
+    T xr[4][4];  // row r of X
+#pragma unroll
+    for (int q = 0; q < 4; ++q) load4(Xs + r * kLd + 4 * q, xr[q]);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) x[c] = T(0);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {  // X (2I - L X)
+      load4(E + k * kLd + 8 * h, v[0]);
+      load4(E + k * kLd + 8 * h + 4, v[1]);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) x[c] = dev_fma(xr[k / 4][k % 4], v[c / 4][c % 4], x[c]);
+    }
+    __syncwarp();  // every lane has read X and E
+#pragma unroll
+    for (int c = 0; c < 8; ++c) Xr[c] = x[c];
+    __syncwarp();
+  }
+}
+
+// Steps 1 and 2 of the panel at base for the kRT rows of tile blockIdx.x %
+// tiles below it (none for the last panel): see the file header.  Rows of
+// S: the diagonal block (its lower triangle; zero above it and past w),
+// then this block's rows (zero past n).  Micro-panel j0 (columns j0..j0+16),
+// with the inverse X of its tile already in Xb:
+//
+// (b) V = M[r, j0:j0+16] X^T, in place, for the 16-row tiles of the rows
+//     below the tile: warp 0 the tile of the next micro-panel's rows, the
+//     other warps the rest;
+// (c) the rank-16 update M[r, j0+16:] -= V[r] V[c]^T of the columns right of
+//     the micro-panel, in 16 x 16 tiles (the lower ones in the diagonal
+//     block): warp 0 the next micro-panel's diagonal tile, which it then
+//     factors (factor_tile) and inverts (newton_inverse) into the other X
+//     buffer; the other warps, once every row of V is in (a named barrier
+//     that warp 0 only arrives at), the rest.
+//
+// So warp 0 runs the chain of tiles without waiting on the other warps'
+// products, and a micro-panel has one block-wide barrier.  Every block runs
+// the same operations on the diagonal block in the same order, so all
+// copies agree, and the block that loaded last writes it.  A bad pivot
+// stops the block after the barrier that follows it.
+template <typename T>
+__global__ void __launch_bounds__(Panel3<T>::kThreads, 1)
+blk_panel3_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base, int tiles) {
+  using P = Panel3<T>;
+  using Mt = TC<T>;
+  constexpr int kMI = 16 / Mt::kM, kNI = 16 / Mt::kN;
+  constexpr int kE = 16 / sizeof(T);  // elements of a 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* S = reinterpret_cast<T*>(smem_raw);           // kRows x kLDS: the panel in and out
+  __shared__ __align__(16) T Xb[2][16 * P::kXLD];  // X of the micro-panels of even and odd index
+  __shared__ __align__(16) T E[16 * P::kXLD];      // newton_inverse's scratch
+  __shared__ __align__(16) T col[32];              // factor_tile's column scratch
+  __shared__ T dinv[P::kMB];
+  __shared__ int last, bad;
+  MOGP_PHASE_BEGIN();
+  const int lane = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  if (status[lane]) return;
+  const int w = min(kNB, n - base);
+  const int r0 = base + kNB + tile * P::kRT;  // first row of this block below the diagonal block
+  const int rows = max(0, min(P::kRT, n - r0));
+  T* M = out + mat_offset(lane, n);
+  const int t = threadIdx.x, warp = t / 32;
+  stage_rows<T, P::kThreads, true>(S, M + static_cast<size_t>(base) * n + base, n, kNB, w);
+  if (rows > 0) {
+    stage_rows<T, P::kThreads, false>(S + kNB * kLDS, M + static_cast<size_t>(r0) * n + base, n,
+                                      P::kRT, rows);
+  }
+  cp_async_commit();
+  if (t == 0) bad = 0;
+  cp_async_wait<0>();
+  __syncthreads();
+  // The diagonal block goes back to out from the block that loaded last:
+  // every other block has its copy by then.  The counter is the block's
+  // top-right corner, zero in out (upper triangle); the last block clears it.
+  if (t == 0) {
+    int* counter = reinterpret_cast<int*>(M + static_cast<size_t>(base) * n + base + kNB - 1);
+    if (tiles > 1) __threadfence();  // the block's loads before the count
+    last = tiles == 1 || atomicAdd(counter, 1) == tiles - 1;
+    if (last && tiles > 1) {
+      __threadfence();
+      *counter = 0;
+    }
+  }
+  MOGP_PHASE(19);
+  if (warp == 0 && factor_tile<T, P::kMB, kLDS>(S, dinv, col, min(P::kMB, w), &bad)) {
+    MOGP_PHASE(24);
+    newton_inverse<T>(S, dinv, E, Xb[0], min(P::kMB, w));
+  }
+  __syncthreads();
+  MOGP_PHASE(20);
+
+  const int rtiles = (rows + 15) / 16;  // 16-row tiles of this block's rows
+  for (int j0 = 0;; j0 += P::kMB) {
+    if (bad) {  // the tile at j0 failed; read by every thread after a barrier
+      if (last && t == 0) status[lane] = base + j0 + bad;
+      return;
+    }
+    const int c0 = j0 + P::kMB;                 // the next micro-panel
+    const int nd = max(0, (w - c0 + 15) / 16);  // 16-row tiles of the diagonal block below the tile
+    const T* X = Xb[(j0 / P::kMB) & 1];
+    const T* V = S + j0;                        // the micro-panel's columns
+    if (warp == 0) {
+      if (nd > 0) {  // (b) for rows c0..c0+16
+        T* R = S + c0 * kLDS + j0;
+        T acc[kMI][kNI][Mt::kC];
+        zero_acc<T, kMI, kNI>(acc);
+        warp_mma<T, kMI, kNI>(acc, R, kLDS, X, P::kXLD, P::kMB);
+        __syncwarp();  // the tile is read before it is overwritten
+        store_acc<T, kMI, kNI>(R, kLDS, acc);
+        __syncwarp();
+      }
+      asm volatile("bar.arrive 1, %0;" ::"n"(P::kThreads) : "memory");
+      MOGP_PHASE(21);
+      if (c0 < w) {  // (c) for the next tile, then its factorization and inverse
+        T* D = S + c0 * kLDS + c0;
+        T acc[kMI][kNI][Mt::kC];
+        zero_acc<T, kMI, kNI>(acc);
+        warp_mma<T, kMI, kNI>(acc, V + c0 * kLDS, kLDS, V + c0 * kLDS, kLDS, P::kMB);
+        sub_acc<T, kMI, kNI>(D, kLDS, acc, 16, 0);
+        __syncwarp();
+        MOGP_PHASE(25);
+        const int mb = min(P::kMB, w - c0);
+        if (factor_tile<T, P::kMB, kLDS>(D, dinv, col, mb, &bad)) {
+          MOGP_PHASE(24);
+          newton_inverse<T>(D, dinv, E, Xb[(j0 / P::kMB + 1) & 1], mb);
+        }
+        MOGP_PHASE(20);
+      }
+    } else {
+      // (b): row tiles q < nd of the diagonal block (the first is warp 0's),
+      // then this block's
+      for (int q = (nd > 0) + warp - 1; q < nd + rtiles; q += P::kWarps - 1) {
+        T* R = S + (q < nd ? c0 + 16 * q : kNB + 16 * (q - nd)) * kLDS + j0;
+        T acc[kMI][kNI][Mt::kC];
+        zero_acc<T, kMI, kNI>(acc);
+        warp_mma<T, kMI, kNI>(acc, R, kLDS, X, P::kXLD, P::kMB);
+        __syncwarp();
+        store_acc<T, kMI, kNI>(R, kLDS, acc);
+      }
+      asm volatile("bar.sync 1, %0;" ::"n"(P::kThreads) : "memory");
+      // (c): the tiles (ti, tj) of the diagonal block's trailing lower
+      // triangle but (0, 0), row tiles ti < nd, then those of this block's
+      // rows, ti >= nd
+      const int ntri = nd * (nd + 1) / 2;
+      for (int q = warp - 1; c0 < w && q < ntri - 1 + rtiles * nd; q += P::kWarps - 1) {
+        int ti = 0, tj;
+        if (q < ntri - 1) {
+          const int p = q + 1;
+          while ((ti + 1) * (ti + 2) / 2 <= p) ++ti;
+          tj = p - ti * (ti + 1) / 2;
+        } else {
+          ti = nd + (q - ntri + 1) / nd;
+          tj = (q - ntri + 1) % nd;
+        }
+        const int r = ti < nd ? c0 + 16 * ti : kNB + 16 * (ti - nd);
+        T acc[kMI][kNI][Mt::kC];
+        zero_acc<T, kMI, kNI>(acc);
+        warp_mma<T, kMI, kNI>(acc, V + r * kLDS, kLDS, V + (c0 + 16 * tj) * kLDS, kLDS, P::kMB);
+        sub_acc<T, kMI, kNI>(S + r * kLDS + c0 + 16 * tj, kLDS, acc, 16,
+                             ti < nd ? 16 * (ti - tj) : 16);
+      }
+    }
+    __syncthreads();
+    MOGP_PHASE(22);
+    if (c0 >= w) break;
+  }
+
+  // this block's rows, and the diagonal block's lower triangle from the
+  // last loader: 16 bytes a store where out's rows are 16-byte aligned
+  const bool vec = reinterpret_cast<uintptr_t>(M) % 16 == 0 && n % kE == 0;
+  for (int e = t; e < P::kRows * (kNB / kE); e += P::kThreads) {
+    const int i = e / (kNB / kE), c = e % (kNB / kE) * kE;
+    if (i < kNB ? !(last && i < w && c <= i) : i - kNB >= rows) continue;
+    T* dst = M + static_cast<size_t>(i < kNB ? base + i : r0 + i - kNB) * n + base + c;
+    const T* src = S + i * kLDS + c;
+    if (vec && (i >= kNB || c + kE - 1 <= i)) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kE; ++q) {
+        if (i >= kNB || c + q <= i) dst[q] = src[q];
+      }
+    }
+  }
+  MOGP_PHASE(23);
+}
+
+// ---------------------------------------------------------------------------
 // Step 3: the trailing update on tensor cores
 // ---------------------------------------------------------------------------
 
@@ -1223,16 +1269,10 @@ cudaError_t side_of_current_device(Side** out) {
 
 template <typename T, int V>
 struct Steps {
-  static constexpr int kMB = 16;  // v3's micro-panel (v2's is kMP; v1 has none)
-  static constexpr bool kInv = V == 3;
-  static constexpr size_t kDiagSmem =
-      V == 2 ? (static_cast<size_t>(kNB) * kLDS + kNB) * sizeof(T)
-             : (static_cast<size_t>(kNB) * kLD + kNB + (kInv ? kNB * kMaxMB : 0)) * sizeof(T);
+  // variant 2's diag and rows steps
+  static constexpr size_t kDiagSmem = (static_cast<size_t>(kNB) * kLDS + kNB) * sizeof(T);
   static constexpr size_t kRowsSmem =
-      V == 2 ? (static_cast<size_t>(kNB + kRowTile2) * kLDS + kNB) * sizeof(T)
-             : (static_cast<size_t>(kNB + kRowTile) * kLD + kNB + (kInv ? kNB * kMaxMB : 0)) *
-                   sizeof(T);
-  static constexpr int kRowsPer = V == 2 ? kRowTile2 : kRowTile;
+      (static_cast<size_t>(kNB + kRowTile2) * kLDS + kNB) * sizeof(T);
 
   static cudaError_t prepare() {
     cudaError_t err = cudaSuccess;
@@ -1246,13 +1286,8 @@ struct Steps {
       err = cudaFuncSetAttribute(blk_rows32_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(kRowsSmem));
     } else {
-      err = cudaFuncSetAttribute(blk_diag_kernel<T, kMB, kInv>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(kDiagSmem));
-      if (err != cudaSuccess) return err;
-      err = cudaFuncSetAttribute(blk_rows_kernel<T, kMB, kInv>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(kRowsSmem));
+      err = cudaFuncSetAttribute(blk_panel3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(Panel3<T>::kSmem));
     }
     if (err != cudaSuccess) return err;
     using UpdateFn = void (*)(T*, const int*, int, int, int);
@@ -1270,32 +1305,28 @@ struct Steps {
   }
 
   // steps 1 and 2 of the panel at base, on stream s
-  static cudaError_t panel(T* out, int* status, T* inv, int batch, int n, int base,
-                           cudaStream_t s) {
+  static cudaError_t panel(T* out, int* status, int batch, int n, int base, cudaStream_t s) {
     const int rest = n - base - kNB;
-    if constexpr (V == 1) {  // one launch; the last panel is one block per matrix
-      const int tiles = rest > 0 ? (rest + Panel1<T>::kRT - 1) / Panel1<T>::kRT : 1;
-      if (!grid_ok(static_cast<long long>(batch) * tiles)) return cudaErrorInvalidConfiguration;
-      blk_panel1_kernel<T><<<batch * tiles, Panel1<T>::kThreads, Panel1<T>::kSmem, s>>>(
-          out, status, n, base, tiles);
-    } else {
-      const int tiles = rest > 0 ? (rest + kRowsPer - 1) / kRowsPer : 0;
+    if constexpr (V == 2) {
+      const int tiles = rest > 0 ? (rest + kRowTile2 - 1) / kRowTile2 : 0;
       if (tiles > 0 && !grid_ok(static_cast<long long>(batch) * tiles)) {
         return cudaErrorInvalidConfiguration;
       }
-      if constexpr (V == 2) {
-        blk_diag32_kernel<T><<<batch, Diag32<T>::kThreads, kDiagSmem, s>>>(out, status, n, base);
-        if (tiles > 0) {
-          blk_rows32_kernel<T><<<batch * tiles, kPanelThreads, kRowsSmem, s>>>(out, status, n,
-                                                                                base, tiles);
-        }
+      blk_diag32_kernel<T><<<batch, Diag32<T>::kThreads, kDiagSmem, s>>>(out, status, n, base);
+      if (tiles > 0) {
+        blk_rows32_kernel<T><<<batch * tiles, kPanelThreads, kRowsSmem, s>>>(out, status, n,
+                                                                              base, tiles);
+      }
+    } else {  // one launch; the last panel is one block per matrix
+      constexpr int kRT = V == 1 ? Panel1<T>::kRT : Panel3<T>::kRT;
+      const int tiles = rest > 0 ? (rest + kRT - 1) / kRT : 1;
+      if (!grid_ok(static_cast<long long>(batch) * tiles)) return cudaErrorInvalidConfiguration;
+      if constexpr (V == 1) {
+        blk_panel1_kernel<T><<<batch * tiles, Panel1<T>::kThreads, Panel1<T>::kSmem, s>>>(
+            out, status, n, base, tiles);
       } else {
-        blk_diag_kernel<T, kMB, kInv><<<batch, kDiagThreads, kDiagSmem, s>>>(out, status, inv, n,
-                                                                            base);
-        if (tiles > 0) {
-          blk_rows_kernel<T, kMB, kInv><<<batch * tiles, kPanelThreads, kRowsSmem, s>>>(
-              out, status, inv, n, base, tiles);
-        }
+        blk_panel3_kernel<T><<<batch * tiles, Panel3<T>::kThreads, Panel3<T>::kSmem, s>>>(
+            out, status, n, base, tiles);
       }
     }
     return cudaGetLastError();
@@ -1339,7 +1370,7 @@ cudaError_t update(T* out, const int* status, int batch, int n, int base, bool f
   } while (0)
 
 template <typename T, int V>
-int run(const T* a, T* out, int* status, T* inv, int batch, int n, cudaStream_t s) {
+int run(const T* a, T* out, int* status, int batch, int n, cudaStream_t s) {
   using St = Steps<T, V>;
   MOGP_TRY(St::prepare());
   const int rows_per = max(1, kCopyElems / n);
@@ -1351,7 +1382,7 @@ int run(const T* a, T* out, int* status, T* inv, int batch, int n, cudaStream_t 
   MOGP_TRY(side_of_current_device(&sd));
   blk_init_kernel<T><<<batch * chunks, kCopyThreads, 0, s>>>(a, out, n, rows_per, chunks);
   MOGP_TRY(cudaGetLastError());
-  MOGP_TRY(St::panel(out, status, inv, batch, n, 0, s));
+  MOGP_TRY(St::panel(out, status, batch, n, 0, s));
   // Panel p has a successor only when it is full: its update's first launch
   // gives the next panel its column block, whose diag and rows steps then run
   // on the side stream while the rest of the update runs here.
@@ -1359,7 +1390,7 @@ int run(const T* a, T* out, int* status, T* inv, int batch, int n, cudaStream_t 
     MOGP_TRY(update<T>(out, status, batch, n, base, true, s));
     MOGP_TRY(cudaEventRecord(sd->ready, s));
     MOGP_TRY(cudaStreamWaitEvent(sd->stream, sd->ready, 0));
-    MOGP_TRY(St::panel(out, status, inv, batch, n, base + kNB, sd->stream));
+    MOGP_TRY(St::panel(out, status, batch, n, base + kNB, sd->stream));
     MOGP_TRY(cudaEventRecord(sd->done, sd->stream));
     MOGP_TRY(update<T>(out, status, batch, n, base, false, s));
     MOGP_TRY(cudaStreamWaitEvent(s, sd->done, 0));
@@ -1369,16 +1400,15 @@ int run(const T* a, T* out, int* status, T* inv, int batch, int n, cudaStream_t 
 }
 
 template <typename T>
-int run_variant(const void* a, void* out, void* status, void* inv, int batch, int n,
-                int variant, cudaStream_t s) {
+int run_variant(const void* a, void* out, void* status, int batch, int n, int variant,
+                cudaStream_t s) {
   const T* at = static_cast<const T*>(a);
   T* ot = static_cast<T*>(out);
   int* st = static_cast<int*>(status);
-  T* it = static_cast<T*>(inv);
   switch (variant) {
-    case 1: return run<T, 1>(at, ot, st, it, batch, n, s);
-    case 2: return run<T, 2>(at, ot, st, it, batch, n, s);
-    case 3: return run<T, 3>(at, ot, st, it, batch, n, s);
+    case 1: return run<T, 1>(at, ot, st, batch, n, s);
+    case 2: return run<T, 2>(at, ot, st, batch, n, s);
+    case 3: return run<T, 3>(at, ot, st, batch, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1391,17 +1421,13 @@ extern "C" {
 // for the look-ahead, joined back before the last launch); returns the
 // first launch error (0 on success).  status: `batch` ints, zeroed by the
 // caller; on return 0, or the 1-based column of the pivot that failed.
-// inv: variant 3 only, batch x 128 x 16 elements of scratch (may be null
-// otherwise).  is_double: 0 float, 1 double.  variant: 1, 2 or 3.  batch >=
-// 1, n >= 1.
-int mogp_cholesky_blocked(const void* a, void* out, void* status, void* inv, int batch, int n,
+// is_double: 0 float, 1 double.  variant: 1, 2 or 3.  batch >= 1, n >= 1.
+int mogp_cholesky_blocked(const void* a, void* out, void* status, int batch, int n,
                           int is_double, int variant, void* stream) {
-  if (batch < 1 || n < 1 || (variant == 3 && inv == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (batch < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_double) return run_variant<double>(a, out, status, inv, batch, n, variant, s);
-  return run_variant<float>(a, out, status, inv, batch, n, variant, s);
+  if (is_double) return run_variant<double>(a, out, status, batch, n, variant, s);
+  return run_variant<float>(a, out, status, batch, n, variant, s);
 }
 
 }  // extern "C"

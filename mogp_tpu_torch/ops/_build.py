@@ -108,7 +108,7 @@ def library():
         fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.mogp_cholesky_blocked
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.mogp_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mogp_cuda_error_string.restype = ctypes.c_char_p

@@ -10,10 +10,10 @@ untouched.  It takes the n above K2's shared-memory bound
 batched ladder above n = 340 (float32) / 240 (float64).
 
 * On a CUDA tensor it runs the panel loop of ``csrc/cholesky_blocked.cu``
-  (128-column panels, four launches each, three for v1, plus one copy in
-  and one NaN pass out; built at first use by ``ops/_build.py``) on the
-  current stream, with a side stream of the library's own for the
-  look-ahead, joined back before it returns, and adds one to
+  (128-column panels, four launches each for v2, three for v1 and v3, plus
+  one copy in and one NaN pass out; built at first use by
+  ``ops/_build.py``) on the current stream, with a side stream of the
+  library's own for the look-ahead, joined back before it returns, and adds one to
   ``launches[variant]``: one count per factorization, i.e. per panel loop.
   It does not catch build or launch errors and never falls back to the
   plain version.
@@ -30,10 +30,11 @@ batched ladder above n = 340 (float32) / 240 (float64).
   the diagonal block and a tile of the rows in registers and factors the
   diagonal block again); v2 (the route) takes 32-column micro-panels with
   tensor-core products; v3 16-column micro-panels through the Newton
-  inverse of their diagonal tile.  All three share the trailing update on
-  tensor cores (three TF32 passes in float32, DMMA in float64) and the
-  look-ahead panel loop; ``csrc/cholesky_blocked.cu`` says why.  Unlike the JAX v3, the
-  port's v3 takes float64 too.
+  inverse of their diagonal tile, in one launch per panel as v1, the
+  micro-panels' rows and rank-16 updates on tensor cores.  All three share
+  the trailing update on tensor cores (three TF32 passes in float32, DMMA
+  in float64) and the look-ahead panel loop; ``csrc/cholesky_blocked.cu``
+  says why.  Unlike the JAX v3, the port's v3 takes float64 too.
 * :func:`tf32_round` and :func:`matmul_tf32` emulate the update's float32
   arithmetic on the CPU (``tests/test_torch_tf32_split.py``); no path of
   the port calls them.
@@ -51,8 +52,8 @@ VARIANTS = ("v1", "v2", "v3")
 # launches (panel loops) of each variant in this process; callers may reset them
 launches = {v: 0 for v in VARIANTS}
 
-# panel width and inverse-tile width of csrc/cholesky_blocked.cu (v3's scratch)
-PANEL, _MB3 = 128, 16
+# panel width of csrc/cholesky_blocked.cu
+PANEL = 128
 
 cholesky_blocked_plain = cholesky_batched_plain
 
@@ -83,13 +84,11 @@ def cholesky_blocked_ex(A, variant):
     lib = library()
     out = torch.empty_like(A)
     status = torch.zeros(B, dtype=torch.int32, device=A.device)
-    inv = torch.empty(B, PANEL, _MB3, dtype=A.dtype, device=A.device) if variant == "v3" else None
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mogp_cholesky_blocked(
-            A.data_ptr(), out.data_ptr(), status.data_ptr(),
-            None if inv is None else inv.data_ptr(), B, n, int(A.dtype == torch.float64),
-            VARIANTS.index(variant) + 1, stream,
+            A.data_ptr(), out.data_ptr(), status.data_ptr(), B, n,
+            int(A.dtype == torch.float64), VARIANTS.index(variant) + 1, stream,
         )
     if err:
         raise RuntimeError(

@@ -18,10 +18,14 @@ it measures, the phases of
   the four 32 x 32 tiles, the rows below them, the trailing updates,
   store), and its time from CUDA events less that of the copy that resets
   its input;
-* steps 1 and 2 of K3 (variant 1) at the first panel of a (1, 4096, 4096)
-  matrix (float32 also 8192): their time from CUDA events less that of the
-  reset, the kernels they launch (``torch.profiler``), and block 0's load,
-  rank-1 steps (also in cycles per column) and store;
+* steps 1 and 2 of K3 (variant 1) and of K5 (variant 3) at the first panel
+  of a (1, 4096, 4096) matrix (float32 also 8192): their time from CUDA
+  events less that of the reset, the kernels they launch
+  (``torch.profiler``), and block 0's phases: for K3 load, rank-1 steps
+  (also in cycles per column) and store; for K5 load, then warp 0's chain
+  of tiles (each tile's update, rank-1 factorization and Newton inverse,
+  and its rows' product with the inverse), its waits for the other warps,
+  and store;
 * the rows step and both launches of the update at the first panel of a
   (1, 4096, 4096) matrix (float32 also 8192), with the update's rate over
   the flops of its full tiles;
@@ -63,6 +67,23 @@ int rows(void* out, void* status, int n, int base, cudaStream_t s) {
       (T*)out, (int*)status, n, base, tiles);
   return (int)cudaGetLastError();
 }
+// Steps<T, V>::panel for one matrix.  Sources whose variant 3 still takes a
+// scratch of tile inverses after status (two launches a panel) get inv, a
+// (128, 16) tile of T; the overload without it is taken where it compiles.
+template <typename S, typename T>
+auto panel_of(T* o, int* st, T*, int n, int base, cudaStream_t s, int)
+    -> decltype(S::panel(o, st, 1, n, base, s)) {
+  return S::panel(o, st, 1, n, base, s);
+}
+template <typename S, typename T>
+cudaError_t panel_of(T* o, int* st, T* inv, int n, int base, cudaStream_t s, long) {
+  return S::panel(o, st, inv, 1, n, base, s);
+}
+template <typename T, int V>
+int panel(void* o, void* st, void* inv, int n, int base, cudaStream_t s) {
+  Steps<T, V>::prepare();
+  return (int)panel_of<Steps<T, V>>((T*)o, (int*)st, (T*)inv, n, base, s, 0);
+}
 __global__ void clock_kernel(long long* o) {
   const long long c0 = clock64();
   unsigned long long g0, g1;
@@ -89,14 +110,14 @@ int ph_rows(void* o, void* st, int n, int base, int dbl, void* s) {
   cudaStream_t cs = (cudaStream_t)s;
   return dbl ? rows<double>(o, st, n, base, cs) : rows<float>(o, st, n, base, cs);
 }
-int ph_panel1(void* o, void* st, int n, int base, int dbl, void* s) {
+int ph_panel(void* o, void* st, void* inv, int n, int base, int dbl, int v, void* s) {
   cudaStream_t cs = (cudaStream_t)s;
   if (dbl) {
-    Steps<double, 1>::prepare();
-    return (int)Steps<double, 1>::panel((double*)o, (int*)st, nullptr, 1, n, base, cs);
+    return v == 1 ? panel<double, 1>(o, st, inv, n, base, cs)
+                  : panel<double, 3>(o, st, inv, n, base, cs);
   }
-  Steps<float, 1>::prepare();
-  return (int)Steps<float, 1>::panel((float*)o, (int*)st, nullptr, 1, n, base, cs);
+  return v == 1 ? panel<float, 1>(o, st, inv, n, base, cs)
+                : panel<float, 3>(o, st, inv, n, base, cs);
 }
 int ph_update(void* o, void* st, int n, int base, int first, int dbl, void* s) {
   cudaStream_t cs = (cudaStream_t)s;
@@ -153,7 +174,7 @@ def _build(csrc):
     for lib in libs:
         lib.ph_read.argtypes = [V]
     libs[0].ph_diag.argtypes = libs[0].ph_rows.argtypes = [V, V, I, I, I, V]
-    libs[0].ph_panel1.argtypes = [V, V, I, I, I, V]
+    libs[0].ph_panel.argtypes = [V, V, V, I, I, I, I, V]
     libs[0].ph_update.argtypes = [V, V, I, I, I, I, V]
     libs[0].ph_clock_ghz.argtypes = [V]
     libs[1].mogp_cholesky_batched.argtypes = [V, V, I, I, I, V]
@@ -196,18 +217,21 @@ def _kernels_launched(fn):
             and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
 
 
-def _k3_panel(blocked, ghz, stream, dtype, n, reps):
-    """K3's steps 1 and 2 at the first panel of a (1, n, n) matrix."""
+def _panel(blocked, ghz, stream, dtype, n, reps, variant):
+    """Steps 1 and 2 of K3 (``variant`` 1) or K5 (3) at the first panel of a
+    (1, n, n) matrix."""
     name, dbl = str(dtype)[6:], int(dtype == torch.float64)
     A = torch.tril(_spd(1, n, dtype, 3))
     out, status = A.clone(), torch.zeros(1, dtype=torch.int32, device="cuda")
+    inv = torch.empty(128, 16, dtype=dtype, device="cuda")  # for sources that take it
 
     def reset():
         out.copy_(A)
         status.zero_()
 
     def panel():
-        _check(blocked.ph_panel1(out.data_ptr(), status.data_ptr(), n, 0, dbl, stream))
+        _check(blocked.ph_panel(out.data_ptr(), status.data_ptr(), inv.data_ptr(), n, 0, dbl,
+                                variant, stream))
 
     reset()
     names = _kernels_launched(panel)
@@ -216,15 +240,25 @@ def _k3_panel(blocked, ghz, stream, dtype, n, reps):
     h = (ctypes.c_longlong * 64)()
     _check(blocked.ph_read(ctypes.addressof(h)))
     calls = reps + 1
-    steps = h[6] + h[12] + h[13]  # the flush moves the lap counter, so 6 is the rest
-    print("{} n={} K3 panel (steps 1-2 at base 0): {:.3f} us; {} launch(es): {}; block 0 (us "
-          "per call): load {:.3f} rank-1 steps {:.3f} (warp 0's work {:.3f}, barrier waits "
-          "{:.3f}) store {:.3f}; {:.1f} cycles per column".format(
-              name, n, t_panel - t_reset, len(names), names, h[5] / calls / ghz / 1e3,
-              steps / calls / ghz / 1e3, h[12] / calls / ghz / 1e3, h[13] / calls / ghz / 1e3,
-              h[7] / calls / ghz / 1e3, steps / calls / 128))
+
+    def us(i):
+        return h[i] / calls / ghz / 1e3
+
+    head = "{} n={} K{} panel (steps 1-2 at base 0): {:.3f} us; {} launch(es): {}; block 0 (us " \
+           "per call): ".format(name, n, 2 + variant, t_panel - t_reset, len(names), names)
+    if variant == 1:
+        steps = h[6] + h[12] + h[13]  # the flush moves the lap counter, so 6 is the rest
+        print(head + "load {:.3f} rank-1 steps {:.3f} (warp 0's work {:.3f}, barrier waits "
+              "{:.3f}) store {:.3f}; {:.1f} cycles per column".format(
+                  us(5), steps / calls / ghz / 1e3, us(12), us(13), us(7), steps / calls / 128))
+    else:
+        print(head + "load {:.3f}; warp 0's chain of tiles: updates {:.3f} factorizations {:.3f} "
+              "Newton inverses {:.3f} products M X^T {:.3f}; waits for the other warps {:.3f}; "
+              "store {:.3f}; {:.1f} cycles per tile factorization, {:.1f} per inverse".format(
+                  us(19), us(25), us(24), us(20), us(21), us(22), us(23),
+                  h[24] / calls / 8, h[20] / calls / 8))
     if int(status.item()) != 0:
-        raise RuntimeError("K3's panel reported a bad pivot on an SPD matrix")
+        raise RuntimeError("K{}'s panel reported a bad pivot on an SPD matrix".format(2 + variant))
 
 
 def main(argv=None):
@@ -269,7 +303,8 @@ def main(argv=None):
             name, t_diag - t_reset, phases(blocked, [(0, "load"), (1, "tiles"), (2, "rows"),
                                                      (3, "update"), (4, "store")], reps + 1)))
         for n in ((4096, 8192) if dtype == torch.float32 else (4096,)):
-            _k3_panel(blocked, ghz, stream, dtype, n, reps)
+            for variant in (1, 3):
+                _panel(blocked, ghz, stream, dtype, n, reps, variant)
             A = torch.tril(_spd(1, n, dtype, 1))
             out = A.clone()
             _check(blocked.ph_diag(out.data_ptr(), status.data_ptr(), n, 0, dbl, stream))

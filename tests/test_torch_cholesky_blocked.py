@@ -171,10 +171,11 @@ def _k3_sweep(P, w):
     return P, 0
 
 
-def _k3_cholesky(A, rows=K3_ROWS):
-    """Lower factor of the float32 ``A`` ``(n, n)`` in K3's arithmetic and
-    launch structure; asserts that every tile's copy of each diagonal block
-    comes out the same."""
+def _k3_cholesky(A, rows=K3_ROWS, sweep=_k3_sweep):
+    """Lower factor of the float32 ``A`` ``(n, n)`` in the launch structure
+    of K3 (and K5, with its ``sweep``): each panel swept over the diagonal
+    block and one tile of ``rows`` rows at a time; asserts that every tile's
+    copy of each diagonal block comes out the same."""
     n = A.shape[0]
     A = torch.tril(A)
     for base in range(0, n, kbl.PANEL):
@@ -188,7 +189,7 @@ def _k3_cholesky(A, rows=K3_ROWS):
             P = torch.zeros(kbl.PANEL + rows, kbl.PANEL)
             P[:w, :w] = A[base:e, base:e]
             P[kbl.PANEL:kbl.PANEL + nr, :w] = A[r0:r0 + nr, base:e]
-            P, info = _k3_sweep(P, w)
+            P, info = sweep(P, w)
             assert info == 0, "pivot {} failed".format(base + info)
             copies.append(torch.tril(P[:w, :w]))
             A[r0:r0 + nr, base:e] = P[kbl.PANEL:kbl.PANEL + nr, :w]
@@ -216,7 +217,10 @@ def test_k3_sweep_matches_the_jax_panel_step(exp_chol):
     assert _k3_sweep(bad, 100) == (None, 41)
 
 
-def test_k3_arithmetic_meets_the_ill_conditioned_rule():
+def _meets_the_ill_conditioned_rule(rows, sweep):
+    """:func:`_k3_cholesky` with ``sweep`` on the SqExp K of the n = 512
+    large-n problem: within ``ILL_RATIO`` of float32 ``cholesky_ex``'s error
+    against the float64 factor, and a backward error <= 1e-5."""
     import mogp_tpu_torch
     from mogp_tpu_torch.tools.large_n import jittered_K, make_problem
 
@@ -231,9 +235,93 @@ def test_k3_arithmetic_meets_the_ill_conditioned_rule():
         return ((L.double() - truth).abs().max() / truth.abs().max()).item()
 
     e_ex = err(torch.linalg.cholesky_ex(K)[0])
-    L = _k3_cholesky(K)
-    e3 = err(L)
+    L = _k3_cholesky(K, rows, sweep)
+    e = err(L)
     assert torch.isfinite(L).all() and e_ex > 0
-    assert e3 <= ILL_RATIO * e_ex, (e3, e_ex)
+    assert e <= ILL_RATIO * e_ex, (e, e_ex)
     Ld = L.double()
     assert ((Ld @ Ld.T - K.double()).abs().max() / K.abs().max()).item() <= 1e-5
+
+
+def test_k3_arithmetic_meets_the_ill_conditioned_rule():
+    _meets_the_ill_conditioned_rule(K3_ROWS, _k3_sweep)
+
+
+# ---------------------------------------------------------------------------
+# The same for K5 (blk_panel3_kernel): per 16-column micro-panel the tile's
+# rank-1 factorization, its inverse by 4 Newton steps (in FMA), the
+# micro-panel's rows as the product with the inverse and the rank-16 update
+# of the rest of the panel, those two products in three TF32 passes.
+
+K5_ROWS = 64  # rows below the diagonal block per block of the float32 kernel
+K5_MB = 16
+
+
+def _newton_inverse(L, r):
+    """The kernel's 4 Newton steps X <- X (2I - L X) from X0 = diag(r):
+    the first as two scalings, the others as products whose every element is
+    a chain of FMAs over k ascending."""
+    two = 2 * torch.eye(L.shape[0])
+    X = r[:, None] * _fma(-L, r[None, :].expand_as(L), two)
+    for _ in range(3):
+        P = torch.zeros_like(L)
+        for k in range(L.shape[0]):
+            P = _fma(L[:, k:k + 1].expand_as(L), X[k:k + 1].expand_as(L), P)
+        E, X0, X = two - P, X, torch.zeros_like(L)
+        for k in range(L.shape[0]):
+            X = _fma(X0[:, k:k + 1].expand_as(L), E[k:k + 1].expand_as(L), X)
+    return X
+
+
+def _k5_sweep(P, w):
+    """The kernel's panel step on the float32 panel ``P`` ``(128 + rows,
+    128)`` (laid out as for :func:`_k3_sweep`).  Micro-panel j0: (a) the
+    tile's rank-1 sweep (column k scaled by r = rsqrt(d_k), then a_lc +=
+    -L_lk L_ck by FMA) and its inverse (:func:`_newton_inverse`); (b) the
+    rows below the tile times X^T; (c) the columns right of the micro-panel
+    less V V^T (the diagonal block's upper triangle stays zero).  Returns
+    ``(P, 0)``, or ``(None, j0 + k + 1)`` at a bad pivot."""
+    P = P.clone()
+    for j0 in range(0, w, K5_MB):
+        mb = min(K5_MB, w - j0)
+        D = torch.tril(P[j0:j0 + mb, j0:j0 + mb])
+        r = torch.zeros(mb)
+        for k in range(mb):
+            d = D[k, k]
+            if not (torch.isfinite(d) and d > 0):
+                return None, j0 + k + 1
+            r[k] = torch.rsqrt(d)
+            D[k, k] = d * r[k]
+            D[k + 1:, k] = D[k + 1:, k] * r[k]
+            u = D[k + 1:, k]
+            D[k + 1:, k + 1:] = torch.tril(_fma(-u[:, None], u[None, :], D[k + 1:, k + 1:]))
+        P[j0:j0 + mb, j0:j0 + mb] = D
+        X = _newton_inverse(D, r)
+        below = slice(j0 + K5_MB, None)
+        P[below, j0:j0 + mb] = kbl.matmul_tf32(P[below, j0:j0 + mb], X.T)
+        if j0 + K5_MB < w:
+            V = P[below, j0:j0 + mb]
+            P[below, j0 + K5_MB:] -= kbl.matmul_tf32(V, V[:kbl.PANEL - j0 - K5_MB].T)
+            P[:kbl.PANEL] = torch.tril(P[:kbl.PANEL])
+    return P, 0
+
+
+def test_k5_sweep_matches_the_jax_panel_step(exp_chol):
+    """One panel worked as the kernel works it equals ``chol_blocked_v3``
+    on a matrix of one panel, to float32 rounding; a bad pivot reports its
+    column."""
+    A = _batch_with_bad_lane()[0][:100, :100]
+    ref = np.asarray(exp_chol.chol_blocked_v3(jnp.asarray(A[None]), chunk=1, interpret=True))[0]
+    P = torch.zeros(kbl.PANEL + K5_ROWS, kbl.PANEL)
+    P[:100, :100] = torch.tril(torch.as_tensor(A))
+    got, info = _k5_sweep(P, 100)
+    assert info == 0
+    assert_allclose(torch.tril(got[:100, :100]).numpy(), ref, rtol=0,
+                    atol=RTOL_OF_MAX * float(np.abs(ref).max()))
+    bad = P.clone()
+    bad[40, 40] = -1.0
+    assert _k5_sweep(bad, 100) == (None, 41)
+
+
+def test_k5_arithmetic_meets_the_ill_conditioned_rule():
+    _meets_the_ill_conditioned_rule(K5_ROWS, _k5_sweep)

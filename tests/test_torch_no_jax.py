@@ -36,8 +36,11 @@ def test_fresh_import_loads_no_jax_and_switches_tf32_off():
 
 
 def test_no_file_of_the_port_imports_jax():
-    files = sorted(PKG.rglob("*.py"))
+    """Every module of the package, its tools included, and chip_smoke.py
+    (which may import the package) import neither JAX nor mogp_tpu."""
+    files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
     assert len(files) >= 10
+    assert any(p.parent.name == "tools" for p in files) and files[-1].is_file()
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
