@@ -15,7 +15,15 @@ Phases (any failure raises, so the exit code is not 0):
    Cholesky kernels, against ``torch.linalg.cholesky_ex`` (in turns:
    plain, library, kernel, kernel, library, plain), printing the ratio
    kernel / ``cholesky_ex`` and the share of the bound (``bound_ms``): K1,
-   the fused kernel-matrix build (2); K2, the batched Cholesky (2b), up to its
+   the fused kernel-matrix build (2), at the headline emulator's former
+   predict tile (64, 210, 4864, 14) and at the tile phase 5 gives it; the
+   fused prediction, K1 redesigned so that K* stays on chip (2d), against
+   the plain version in float64 (the kernel within 2x the float32 plain
+   version's error) at the bring-up shapes, the headline tile and the
+   route's bounds, M = 0 and 15, with ``unc`` on and off, and at the main
+   path's own tile on a sample of its columns; timed against the plain
+   version and the unfused chain it replaces (K1, the products, cuBLAS's
+   triangular solve, the sums); K2, the batched Cholesky (2b), up to its
    shared-memory bound (n = 340 in float32, 240 in float64), every call
    launching K2 once; K3-K5, the blocked Cholesky variants v1-v3 (2c), above
    that bound up to n = 8192 (the large-n fit's (1, 4096) and (1, 8192),
@@ -26,7 +34,9 @@ Phases (any failure raises, so the exit code is not 0):
 3. The serving path at full width: a 64-output ``MultiOutputGP`` with
    n = 210 training points in D = 14 dimensions (``nugget="adaptive"``,
    float32 on the card) fit at seeded hyperparameters, then asked for
-   means and variances at 10^6 seeded query points.  The first 4096
+   means and variances at 10^6 seeded query points through the fused
+   kernel (no K1 launch, so no (L, n, tile) K* on the device); the peak
+   device memory is printed.  The first 4096
    queries are held against the same problem run by the port on the CPU in
    float64.
 4. The MAP fit at full width, with the protocol of ``bench.py:107-128``:
@@ -41,7 +51,8 @@ Phases (any failure raises, so the exit code is not 0):
    ``nugget="adaptive"``, float32), through ``tools/large_n.py`` at n =
    4096 and 8192 (fit time, TFLOP/s, one value + gradient, one route
    launch per progressive ladder rung), ``fit_GP_MAP`` with 4 restarts and
-   ``maxiter=20``, and a prediction at 10^5 seeded queries.  The float32 log
+   ``maxiter=20``, and a prediction at 10^5 seeded queries (n above the
+   fused route's bound: K1, then the solves).  The float32 log
    posterior must be within 1e-3 of the port's on the CPU in float64 at the
    card's realized nugget, and the same fit in float64 on the card within
    1e-9 of the CPU's.  No CUDA tensor may reach ``torch.linalg.cholesky_ex``
@@ -49,11 +60,12 @@ Phases (any failure raises, so the exit code is not 0):
 
 Around each of phases 3, 4 and 5 the kernels' launch counters are zeroed
 just before and read just after; every kernel of the path must have
-launched (K1 in 3, K2 in 4, the routed blocked variant in 5).  The
+launched (the fused prediction in 3, K2 in 4, K1 and the routed blocked
+variant in 5).  The
 blocked variants the route does not take are checked and timed in 2c and
 listed with the launches they made in 5 (none) and ``"routed": false``.
 The last three lines of standard output are a JSON object describing each
-kernel, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
+kernel (K1, the fused prediction, K2, K3-K5), the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits with a non-zero code and prints no result.
 """
@@ -67,6 +79,10 @@ import time
 
 N_POINTS, N_DIM, N_OUTPUTS, N_QUERIES = 210, 14, 64, 10**6
 N_CHECK = 4096
+# the headline emulator's predict tile before the fused kernel (PR 1-7):
+# where K1 has been timed against its bound since PR 1, and the fused
+# kernel against the unfused chain
+K1_SHAPE = (N_OUTPUTS, N_POINTS, 4864, N_DIM)
 
 # phase 2: kernel vs plain version on the same inputs.  float32: the
 # kernel's difference form and the plain matmul form round differently
@@ -178,12 +194,15 @@ def kernel_inputs(shape, dtype, seed):
 
 
 def phase_kernels(km, main_shape):
-    """Kernel vs plain version, checked and timed; returns the kernel's
-    record for the JSON line, without ``launches``."""
+    """K1 vs plain version, checked and timed at the bring-up shapes, at the
+    headline emulator's former predict tile (the record's shape, timed
+    since PR 1) and at ``main_shape``, the tile its path now gives it (the
+    large-n predict); returns the kernel's record for the JSON line,
+    without ``launches``."""
     import torch
 
-    shapes = [(1, 50, 37, 3), (1, 130, 200, 14), (1, 5, 5, 1),
-              (N_OUTPUTS, N_POINTS, 4096, N_DIM), main_shape]
+    shapes = [(1, 50, 37, 3), (1, 130, 200, 14), (1, 5, 5, 1), (2, 70, 131, 20),
+              (N_OUTPUTS, N_POINTS, 4096, N_DIM), K1_SHAPE, main_shape]
     main_err = main_rel = 0.0
     for dtype in (torch.float32, torch.float64):
         rtol, atol = KERNEL_TOL[str(dtype).replace("torch.", "")]
@@ -203,7 +222,7 @@ def phase_kernels(km, main_shape):
                           "ok" if ok else "FAIL"))
                 if not ok:
                     raise AssertionError("kernel_matrix disagrees with its plain version")
-                if shape == main_shape and dtype == torch.float32 and base == "sqexp":
+                if shape == K1_SHAPE and dtype == torch.float32 and base == "sqexp":
                     main_err, main_rel = max_abs, max_rel
                 del K, P, err, args
         # Matern 5/2 is exactly 1 where r2 == 0
@@ -217,8 +236,7 @@ def phase_kernels(km, main_shape):
 
     timings = {}
     for dtype in (torch.float32, torch.float64):
-        for shape in (main_shape, (N_OUTPUTS, N_POINTS, 4096, N_DIM),
-                      (N_OUTPUTS, N_POINTS, 32768, N_DIM)):
+        for shape in (K1_SHAPE, main_shape):
             args = kernel_inputs(shape, dtype, 7)
 
             def kern():
@@ -238,19 +256,19 @@ def phase_kernels(km, main_shape):
             timings[(str(dtype)[6:], shape)] = (ms, plain_ms)
             del args
             torch.cuda.empty_cache()
-    ms, plain_ms = timings[("float32", main_shape)]
-    L, n, m, D = main_shape
-    # inputs read once and K written once; per element 3 D flops for the
-    # scaled squared distance, and the exponential and sigma^2 as two
-    bound, bound_by = bound_ms(4 * (L * n * D + m * D + L * D + L + L * n * m),
-                               L * n * m * (3 * D + 2))
-    print("phase 2: kernel_matrix float32 {}: {} ms, bound {} ms ({}), {} of the bound".format(
-        main_shape, ms, bound, bound_by, bound / ms))
+    for shape in (K1_SHAPE, main_shape):
+        ms, _ = timings[("float32", shape)]
+        bound, bound_by = k1_bound_ms(shape)
+        print("phase 2: kernel_matrix float32 {}: {} ms, bound {} ms ({}), {} of the "
+              "bound".format(shape, ms, bound, bound_by, bound / ms))
+    ms, plain_ms = timings[("float32", K1_SHAPE)]
+    bound, bound_by = k1_bound_ms(K1_SHAPE)
     record = {
         "name": "kernel_matrix",
         "route": "cuda",
         "source": "mogp_tpu_torch/csrc/kernel_matrix.cu",
         "replaces": "mogp_tpu/ops/pallas_kernels.py:88",
+        "shape": list(K1_SHAPE),
         "max_abs_err": main_err,
         "max_rel_err": main_rel,
         "ms": ms,
@@ -258,8 +276,226 @@ def phase_kernels(km, main_shape):
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": None,  # no one PyTorch call computes this function
+        "main_path_shape": list(main_shape),
+        "main_path_ms": timings[("float32", main_shape)][0],
     }
     return record
+
+
+def k1_bound_ms(shape):
+    """K1's bound in float32: inputs read once and K written once; per
+    element 3 D flops for the scaled squared distance, and the exponential
+    and sigma^2 as two."""
+    L, n, m, D = shape
+    return bound_ms(4 * (L * n * D + m * D + L * D + L + L * n * m), L * n * m * (3 * D + 2))
+
+
+# phase 2d: the fused prediction at the bring-up shapes (one panel, one
+# and a bit, below one, two input chunks), the headline tile, and at the
+# route's bounds per type; M = 0 (zero mean) and 15 (a linear mean in 14
+# dimensions; D + 1 where D is smaller)
+FUSED_SHAPES = [(1, 50, 37, 3), (1, 130, 200, 14), (1, 5, 5, 1), (3, 16, 64, 2),
+                (2, 17, 65, 20), K1_SHAPE]
+FUSED_M = (0, 15)
+# the kernel's error against the float64 plain version may be at most
+# FUSED_RATIO times the float32 plain version's (phase 2c's rule), or a few
+# ulps of the largest value where both are exact to rounding.  In float64
+# the float32 plain error scaled by the ratio of the two epsilons stands in
+# for the float32 plain error, twice: there the measured difference holds
+# the float64 plain version's own rounding (its matmul-form r2 among it)
+# as well as the kernel's
+FUSED_RATIO, FUSED_ULPS = 2.0, 8.0
+
+
+def fused_problem(shape, M, base, seed, dtype):
+    """A fitted-GP-shaped problem for the fused kernel, made in float64 on
+    the card and cast to ``dtype``: ``(args, args64)``, each the wrapper's
+    positional arguments.  Even lanes have long lengthscales (K's condition
+    1e6-1e8), every lane the adaptive nugget's first jitter rung (1e-6 of
+    sigma^2); the mean is linear in the first ``M - 1`` inputs (``M <= D +
+    1``)."""
+    import torch
+    from mogp_tpu_torch.ops.kernels import _BASE_FNS
+
+    L, n, m, D = shape
+    f64 = torch.float64
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def u(*size):
+        return torch.rand(*size, generator=g, dtype=f64, device="cuda")
+
+    def design(x):
+        cols = [torch.ones_like(x[..., 0])] + [x[..., a] for a in range(M - 1)]
+        return torch.stack(cols[:M], dim=-1) if M else x[..., :0]
+
+    x1, x2 = u(L, n, D), u(m, D)
+    raw = 2.0 * u(L, D) - 1.0
+    raw[::2] -= 3.0
+    exp_theta, sigma2 = torch.exp(raw), torch.exp(u(L) - 0.5)
+    z = x1 * torch.sqrt(exp_theta)[:, None, :]
+    r2 = ((z[:, :, None, :] - z[:, None, :, :]) ** 2).sum(-1)
+    nugget = 1e-6 * sigma2
+    K = sigma2[:, None, None] * _BASE_FNS[base](r2)
+    Lk = torch.linalg.cholesky(K + nugget[:, None, None] * torch.eye(n, dtype=f64, device="cuda"))
+    H, dmtest = design(x1), design(x2).contiguous()
+    Kinv_dm = torch.cholesky_solve(H, Lk)
+    LA = torch.linalg.cholesky(H.transpose(-1, -2) @ Kinv_dm)
+    beta = u(L, M)
+    alpha = torch.cholesky_solve((u(L, n) - (H @ beta[..., None])[..., 0])[..., None], Lk)[..., 0]
+    args64 = [x1, x2, exp_theta, sigma2, Lk, alpha, Kinv_dm, dmtest, beta, LA, sigma2 + nugget]
+    args64 = [a.contiguous() for a in args64]
+    return [a.to(dtype) for a in args64], args64
+
+
+def fused_bound_ms(shape, M):
+    """The fused kernel's bound in float32: per lane and query n (3 D + 2)
+    flops for K*, n^2 for the substitution, 4 n for the mean and |v|^2,
+    2 n M + M^2 for r and u; its inputs read once (the factors' lower
+    triangles) and mu and var written once."""
+    L, n, m, D = shape
+    flops = L * m * (n * (3 * D + 2) + n * n + 4 * n + 2 * n * M + M * M)
+    elems = (L * n * D + m * D + L * D + L + L * n * (n + 1) // 2 + L * n + L * n * M + m * M
+             + L * M + L * M * (M + 1) // 2 + L + 2 * L * m)
+    return bound_ms(4 * elems, flops)
+
+
+def fused_errors(pf, km, mu, var, args64, dtype, base):
+    """The kernel's ``mu`` and ``var`` against the float64 plain version on
+    the float64 problem ``args64``, with phase 2d's limits: ``(line, ok,
+    errors)``, ``errors`` the largest of each.  The ulps floor of ``mu`` counts
+    the sums it is made of, ``|dmtest| |beta| + |K*|^T |alpha|`` (alpha is
+    large where K is ill-conditioned); that of ``var`` its largest value."""
+    import torch
+
+    f32, f64 = torch.float32, torch.float64
+    eps_ratio = torch.finfo(f64).eps / torch.finfo(f32).eps
+    x1, x2, et, s2, _, alpha, _, dmtest, beta, _, _ = args64
+    K = km.kernel_matrix_plain(x1, x2, et, s2, base=base)
+    mag_mu = ((K.abs().transpose(-1, -2) @ alpha.abs()[..., None])[..., 0]
+              + (dmtest.abs() @ beta.abs()[..., None])[..., 0]).max().item()
+    del K
+    ref = pf.predict_fused_plain(*args64, base=base)
+    p32 = pf.predict_fused_plain(*[a.to(f32) for a in args64], base=base)
+    line, ok, errs = [], True, {}
+    for name, got, want, plain, mag in (("mu", mu, ref[0], p32[0], mag_mu),
+                                        ("var", var, ref[1], p32[1], None)):
+        mag = max(1.0, want.abs().max().item()) if mag is None else mag
+        err = (got.to(f64) - want).abs().max().item()
+        err32 = (plain.to(f64) - want).abs().max().item()
+        ref_err = err32 if dtype == f32 else 2.0 * err32 * eps_ratio
+        limit = FUSED_RATIO * ref_err + FUSED_ULPS * torch.finfo(dtype).eps * mag
+        ok = ok and bool(torch.isfinite(got).all()) and err <= limit
+        errs[name] = err
+        line.append("{} err {} (f32 plain {}, limit {})".format(name, err, err32, limit))
+    return "; ".join(line), ok, errs
+
+
+def phase_fused(pf, km, main_shape):
+    """Phase 2d: the fused prediction against its plain version on the
+    card, checked and timed; returns its record for the JSON line, without
+    ``launches``."""
+    import torch
+
+    f32, f64 = torch.float32, torch.float64
+    cases = [(dt, shape, min(M, shape[3] + 1), base) for dt in (f32, f64)
+             for shape in FUSED_SHAPES for M in FUSED_M for base in ("sqexp", "mat52")]
+    cases += [(dt, (2, pf.N_FUSED[dt], 300, pf.M_FUSED - 1), pf.M_FUSED, "sqexp")
+              for dt in (f32, f64)]
+    for seed, (dtype, shape, M, base) in enumerate(cases):
+        args, args64 = fused_problem(shape, M, base, seed, dtype)
+        before = pf.launches
+        mu, var = pf.predict_fused(*args, base=base)
+        mu_nounc, var_nounc = pf.predict_fused(*args, unc=False, base=base)
+        torch.cuda.synchronize()
+        if pf.launches != before + 2:
+            raise AssertionError("predict_fused did not launch its kernel")
+        line, ok, _ = fused_errors(pf, km, mu, var, args64, dtype, base)
+        ok = ok and var_nounc is None and torch.equal(mu, mu_nounc)
+        print("phase 2d: predict_fused {} {} M={} {}: {}; unc off: same mu, no var {}".format(
+            str(dtype)[6:], base, M, shape, line, "ok" if ok else "FAIL"))
+        if not ok:
+            raise AssertionError("predict_fused disagrees with its plain version")
+        del args, args64, mu, var
+    torch.cuda.empty_cache()
+
+    # the main path's own shape: the kernel over every query, the plain
+    # version on every 97th (columns are independent)
+    args, args64 = fused_problem(main_shape, 0, "sqexp", 1234, f32)
+    mu, var = pf.predict_fused(*args)
+    idx = torch.cat([torch.arange(0, main_shape[2], 97, device="cuda"),
+                     torch.arange(main_shape[2] - 3, main_shape[2], device="cuda")])
+    sub = list(args64)
+    sub[1], sub[7] = args64[1][idx].contiguous(), args64[7][idx].contiguous()
+    line, ok, main_errs = fused_errors(pf, km, mu[:, idx], var[:, idx], sub, f32, "sqexp")
+    print("phase 2d: predict_fused float32 sqexp M=0 {} (the main path's tile), {} of its "
+          "columns: {} {}".format(main_shape, idx.numel(), line, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("predict_fused disagrees with its plain version at the main shape")
+    main_ms = time_ms(lambda: pf.predict_fused(*args), reps=5, warmup=1)
+    bound, bound_by = fused_bound_ms(main_shape, 0)
+    print("phase 2d: time predict_fused float32 {}: {} ms, bound {} ms ({}), {} of the "
+          "bound".format(main_shape, main_ms, bound, bound_by, bound / main_ms))
+    del args, args64, mu, var, sub
+    torch.cuda.empty_cache()
+
+    def unfused(x1, x2, et, s2, Lk, alpha, Kinv_dm, dmtest, beta, LA, var_shift):
+        """Today's chain on the card before the fused kernel: K1, then the
+        products, cuBLAS's triangular solve and the reductions."""
+        K = km.kernel_matrix(x1, x2, et, s2)
+        mu = (dmtest @ beta[..., None])[..., 0] + (K.transpose(-1, -2) @ alpha[..., None])[..., 0]
+        R = dmtest.T - Kinv_dm.transpose(-1, -2) @ K
+        v = torch.linalg.solve_triangular(Lk, K, upper=False)
+        u = torch.linalg.solve_triangular(LA, R, upper=False) if LA.shape[-1] else R
+        return mu, torch.clamp_min(var_shift[:, None] - (v**2).sum(-2) + (u**2).sum(-2), 0.0)
+
+    timings = {}
+    for dtype in (f32, f64):
+        for M in (min(M, K1_SHAPE[3] + 1) for M in FUSED_M):
+            args, _ = fused_problem(K1_SHAPE, M, "sqexp", 7, dtype)
+
+            def kern():
+                return pf.predict_fused(*args)
+
+            def plain():
+                return pf.predict_fused_plain(*args)
+
+            def chain():
+                return unfused(*args)
+
+            # plain, unfused, kernel, kernel, unfused, plain on one card
+            p1, u1, k1, k2, u2, p2 = (time_ms(plain), time_ms(chain), time_ms(kern),
+                                      time_ms(kern), time_ms(chain), time_ms(plain))
+            ms, plain_ms, chain_ms = (k1 + k2) / 2, (p1 + p2) / 2, (u1 + u2) / 2
+            bound, bound_by = fused_bound_ms(K1_SHAPE, M)
+            print("phase 2d: time predict_fused {} M={} {}: kernel {} ms ({} {}), unfused chain "
+                  "{} ms ({} {}), plain {} ms ({} {}); bound (float32 peaks) {} ms ({}), {} of "
+                  "it".format(str(dtype)[6:], M, K1_SHAPE, ms, k1, k2, chain_ms, u1, u2,
+                              plain_ms, p1, p2, bound, bound_by, bound / ms))
+            timings[(dtype, M)] = (ms, plain_ms, chain_ms, bound, bound_by)
+            del args
+            torch.cuda.empty_cache()
+    ms, plain_ms, chain_ms, bound, bound_by = timings[(f32, 0)]
+    return {
+        "name": "predict_fused",
+        "route": "cuda",
+        "source": "mogp_tpu_torch/csrc/kernel_matrix.cu",
+        "replaces": "mogp_tpu/ops/pallas_kernels.py:88",
+        "shape": list(K1_SHAPE),
+        # at the main path's tile, on the sampled columns
+        "max_abs_err": max(main_errs.values()),
+        "max_abs_err_mu": main_errs["mu"],
+        "max_abs_err_var": main_errs["var"],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        # no one PyTorch call computes this function; in its place the
+        # unfused chain (K1, the products, the triangular solve, the sums)
+        "library_ms": None,
+        "unfused_ms": chain_ms,
+        "main_path_shape": list(main_shape),
+        "main_path_ms": main_ms,
+    }
 
 
 def _rel_err(L, P):
@@ -607,9 +843,10 @@ def _route_launches(kbl, variant, fn):
     return kbl.launches[variant] - before
 
 
-def phase_large_n(mogp_tpu_torch, km, kb, kbl, label):
+def phase_large_n(mogp_tpu_torch, km, kb, kbl, pf, label):
     """The large-n GP slice (module doc, phase 5); returns the routed
-    blocked variant and the launches of each blocked variant in it."""
+    blocked variant, the launches of each blocked variant in it and K1's
+    launches in it."""
     import numpy as np
     import torch
     from mogp_tpu_torch.tools import large_n
@@ -617,8 +854,10 @@ def phase_large_n(mogp_tpu_torch, km, kb, kbl, label):
     route = kb.route(LARGE_N, torch.float32)
     if route != kb.route(LARGER_N, torch.float32) or route not in kbl.VARIANTS:
         raise AssertionError("the large-n sizes are not routed to one blocked variant")
+    if pf.route("cuda", LARGE_N, 0, "stationary", False, torch.float32) != "unfused":
+        raise AssertionError("the large-n predict is not on K1's route")
     torch.cuda.synchronize()
-    km.launches = kb.launches = 0
+    km.launches = kb.launches = pf.launches = 0
     for v in kbl.VARIANTS:
         kbl.launches[v] = 0
     with forbid_cholesky_ex_on_cuda():
@@ -688,14 +927,16 @@ def phase_large_n(mogp_tpu_torch, km, kb, kbl, label):
             raise AssertionError("the large-n log posterior disagrees with the float64 CPU")
     torch.cuda.synchronize()
     launches = dict(kbl.launches)
-    print("phase 5: launches K1 {}, K2 {}, blocked {} (the route: {})".format(
-        km.launches, kb.launches, launches, route))
-    if launches[route] == 0:
-        raise AssertionError("the routed blocked variant did not launch in phase 5")
-    return route, launches
+    print("phase 5: launches K1 {}, predict_fused {}, K2 {}, blocked {} (the route: {})".format(
+        km.launches, pf.launches, kb.launches, launches, route))
+    if launches[route] == 0 or km.launches == 0:
+        raise AssertionError("the routed blocked variant or K1 did not launch in phase 5")
+    return route, launches, km.launches
 
 
-def phase_slice(mogp_tpu_torch, km, kb, label):
+def phase_slice(mogp_tpu_torch, km, kb, pf, label):
+    """The serving path (module doc, phase 3); returns the fused kernel's
+    launches in it."""
     import numpy as np
     import torch
 
@@ -705,7 +946,7 @@ def phase_slice(mogp_tpu_torch, km, kb, label):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    km.launches = kb.launches = 0
+    km.launches = kb.launches = pf.launches = 0
     t0 = time.perf_counter()
     mgp = mogp_tpu_torch.MultiOutputGP(x, y, nugget="adaptive", device="cuda")
     t1 = time.perf_counter()
@@ -714,7 +955,7 @@ def phase_slice(mogp_tpu_torch, km, kb, label):
     t2 = time.perf_counter()
     res = mgp.predict(q)  # returns host arrays: the device work is done
     t3 = time.perf_counter()
-    launches, chol_launches = km.launches, kb.launches
+    launches, k1_launches, chol_launches = pf.launches, km.launches, kb.launches
 
     if res.mean.shape != (N_OUTPUTS, N_QUERIES) or res.unc.shape != (N_OUTPUTS, N_QUERIES):
         raise AssertionError("prediction has the wrong shape")
@@ -722,17 +963,19 @@ def phase_slice(mogp_tpu_torch, km, kb, label):
         raise AssertionError("non-finite predictive means")
     if not (np.isfinite(res.unc).all() and (res.unc >= 0).all()):
         raise AssertionError("predictive variances not finite and >= 0")
-    if launches <= 0 or chol_launches <= 0:
-        raise AssertionError("the serving path did not launch kernel_matrix and cholesky_batched")
+    # the fused route builds no (L, n, tile) K*: only K1 would allocate one
+    if launches <= 0 or chol_launches <= 0 or k1_launches != 0:
+        raise AssertionError("the serving path did not launch predict_fused and "
+                             "cholesky_batched, or launched kernel_matrix")
     peak = torch.cuda.max_memory_allocated()
     construct_s, fit_s, predict_s = t1 - t0, t2 - t1, t3 - t2
     print("phase 3: MultiOutputGP {} outputs, n={}, D={}, float32 on {}: construct {} s, "
           "fit {} s, predict {} points {} s = {} points/s ({} output-points/s); "
-          "kernel_matrix launches {}, cholesky_batched launches {}; peak device memory {} "
-          "GB".format(
+          "predict_fused launches {}, kernel_matrix launches {}, cholesky_batched launches {}; "
+          "peak device memory {} GB (one (L, n, 4864) float32 K* was {} GB)".format(
               N_OUTPUTS, N_POINTS, N_DIM, label, construct_s, fit_s, N_QUERIES, predict_s,
-              N_QUERIES / predict_s, N_OUTPUTS * N_QUERIES / predict_s, launches,
-              chol_launches, peak / 1e9))
+              N_QUERIES / predict_s, N_OUTPUTS * N_QUERIES / predict_s, launches, k1_launches,
+              chol_launches, peak / 1e9, 4 * N_OUTPUTS * N_POINTS * 4864 / 1e9))
 
     # the same fit and predict again, warm
     torch.cuda.synchronize()
@@ -850,6 +1093,8 @@ def main():
     from mogp_tpu_torch.ops import cholesky_batched as kb
     from mogp_tpu_torch.ops import cholesky_blocked as kbl
     from mogp_tpu_torch.ops import kernel_matrix as km
+    from mogp_tpu_torch.ops import predict_fused as pf
+    from mogp_tpu_torch.tools.large_n import N_DIM as LARGE_N_DIM
 
     if os.path.dirname(os.path.dirname(os.path.abspath(mogp_tpu_torch.__file__))) != here:
         raise RuntimeError("mogp_tpu_torch was not imported from this checkout")
@@ -867,20 +1112,28 @@ def main():
     print("phase 1: {} ({}); kernel library ready in {} s (nvcc {} s); ptxas: {}".format(
         torch.cuda.get_device_name(0), smi, build_s, _build.build_seconds, regs))
 
-    # the query tile the main path gives the kernel (0: one untiled call)
-    tile = _predict_tile_size(N_QUERIES, None, n_train=N_POINTS, n_lanes=N_OUTPUTS) or N_QUERIES
-    main_shape = (N_OUTPUTS, N_POINTS, tile, N_DIM)
-    record = phase_kernels(km, main_shape)
+    # the query tiles the main paths give the kernels (0: one untiled
+    # call): the fused kernel's in phase 3, K1's in phase 5
+    if pf.route("cuda", N_POINTS, 0, "stationary", False, torch.float32) != "fused":
+        raise AssertionError("the headline emulator is not on the fused route")
+    tile = _predict_tile_size(N_QUERIES, None, n_train=N_POINTS, n_lanes=N_OUTPUTS, fused=True,
+                              n_dim=N_DIM) or N_QUERIES
+    fused_shape = (N_OUTPUTS, N_POINTS, tile, N_DIM)
+    tile = _predict_tile_size(LARGE_N_QUERIES, None, n_train=LARGE_N) or LARGE_N_QUERIES
+    k1_shape = (1, LARGE_N, tile, LARGE_N_DIM)
+    record = phase_kernels(km, k1_shape)
+    fused_record = phase_fused(pf, km, fused_shape)
     chol_record = phase_cholesky(kb)
     blocked_records = phase_blocked(kbl)
-    record["launches"] = phase_slice(mogp_tpu_torch, km, kb, smi)
+    fused_record["launches"] = phase_slice(mogp_tpu_torch, km, kb, pf, smi)
     chol_record["launches"] = phase_fit(mogp_tpu_torch, km, kb, smi)
-    route, blocked_launches = phase_large_n(mogp_tpu_torch, km, kb, kbl, smi)
+    route, blocked_launches, record["launches"] = phase_large_n(
+        mogp_tpu_torch, km, kb, kbl, pf, smi)
     for rec, v in zip(blocked_records, kbl.VARIANTS):
         rec["launches"] = blocked_launches[v]
         rec["routed"] = v == route
 
-    print(json.dumps({"kernels": [record, chol_record, *blocked_records]}))
+    print(json.dumps({"kernels": [record, fused_record, chol_record, *blocked_records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

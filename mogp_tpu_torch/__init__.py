@@ -3,9 +3,10 @@
 Same module layout and public names as ``mogp_tpu``; tensors carry an
 explicit leading lanes (outputs) axis where the JAX package used ``vmap``,
 constructors take an explicit ``device=`` and ``dtype=``, and the fused
-kernel-matrix build of the prediction path and the batched Cholesky of the
-MAP fit are CUDA kernels (``csrc/kernel_matrix.cu``,
-``csrc/cholesky_batched.cu``).  This package never imports ``jax``.
+prediction (the kernel-matrix build with its consumers), the kernel-matrix
+build of the other prediction paths and the Cholesky factorizations are
+CUDA kernels (``csrc/kernel_matrix.cu``, ``csrc/cholesky_batched.cu``,
+``csrc/cholesky_blocked.cu``).  This package never imports ``jax``.
 
 Ported so far: the serving path -- construct ``GaussianProcess`` /
 ``MultiOutputGP``, ``fit`` at given hyperparameters, ``predict`` -- the

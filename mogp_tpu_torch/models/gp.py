@@ -27,6 +27,7 @@ import torch
 
 from ..config import default_dtype, resolve_device
 from ..ops.cholesky import ChoFactor, cholesky_factor
+from ..ops import predict_fused as pf
 from ..ops.kernels import get_kernel
 from ..ops.linalg import dot_hp, marginal_core, marginal_nlp
 from .meanfun import design_matrix
@@ -252,6 +253,12 @@ def _gp_predict_impl(
 ):
     """Predictive mean and (co)variance for every lane.
 
+    Where :func:`_predict_route` says ``"fused"``, one call of
+    ``ops/predict_fused.py`` (the fused kernel on the card, its plain
+    version on the CPU) computes the formulas below without a
+    cross-covariance in device memory; otherwise K1 builds ``Ktest`` and
+    the solves follow.
+
     :param testing: ``(m, D)`` query points, shared by the lanes.
     :param dmtest: ``(m, M)`` design matrix of the query points.
     :returns: ``(mu, var)``: ``mu`` ``(L, m)``; ``var`` ``None`` if not
@@ -260,6 +267,16 @@ def _gp_predict_impl(
     n_corr = kernel.get_n_params(data.inputs)
     corr_raw = artifacts.raw[:, :n_corr]
     sigma2 = torch.exp(artifacts.raw[:, n_corr])
+    with_nugget = include_nugget and nugget_type != "pivot"
+
+    if _predict_route(data, kernel, full_cov) == "fused":
+        var_shift = sigma2 + artifacts.nugget if with_nugget else sigma2
+        return pf.predict_fused(
+            *kernel.lane_inputs(data.inputs, testing, corr_raw, sigma2),
+            artifacts.Kinv.L.contiguous(), artifacts.Kinv_t_mean.contiguous(),
+            artifacts.Kinv_dm.contiguous(), dmtest.contiguous(), artifacts.mean.contiguous(),
+            artifacts.Ainv.L.contiguous(), var_shift.contiguous(), unc=unc, base=kernel.base,
+        )
 
     mtest = _matvec(dmtest, artifacts.mean)
     # the fused kernel-matrix build (CUDA on the card), sigma2 included
@@ -276,7 +293,6 @@ def _gp_predict_impl(
     Linv_Ktest = artifacts.Kinv.solve_L(Ktest)
     LAinv_R = artifacts.Ainv.solve_L(R)
 
-    with_nugget = include_nugget and nugget_type != "pivot"
     if full_cov:
         sigma_2 = kernel.kernel_f_predict(testing, testing, corr_raw, sigma2)
         if with_nugget:
@@ -316,10 +332,11 @@ def gp_predict_tiled(
 ):
     """Prediction over fixed-size query tiles.
 
-    The per-tile working set -- the ``(L, n, tile)`` cross-covariance, its
-    half-solve and the ``(L, M, tile)`` correction -- is all that exists on
-    the device at once besides the outputs.  Tiles are enqueued without a
-    host sync.  Full covariance is not supported here.
+    On the unfused route the per-tile working set -- the ``(L, n, tile)``
+    cross-covariance, its half-solve and the ``(L, M, tile)`` correction --
+    is all that exists on the device at once besides the outputs; on the
+    fused route a tile holds only its queries and outputs.  Tiles are
+    enqueued without a host sync.  Full covariance is not supported here.
 
     :returns: ``(mu, var)`` with ``var`` ``None`` when ``unc`` is False.
     """
@@ -354,15 +371,44 @@ def tiled_query_map(testing, dmtest, tile, body):
     return [body(t3[i], dm3[i]) for i in range(n_tiles)], m
 
 
-def _predict_tile_size(n_testing, max_batch_size, n_train=None, n_lanes=1):
+def _predict_route(data, kernel, full_cov=False):
+    """``ops/predict_fused.py``'s route for these lanes: ``"fused"`` or
+    ``"unfused"``."""
+    return pf.route(data.inputs.device, data.inputs.shape[-2], data.dm.shape[-1],
+                    kernel.form, full_cov, data.inputs.dtype)
+
+
+def _query_tile(n_testing, max_batch_size, data, kernel):
+    """:func:`_predict_tile_size` for predicting ``data``'s lanes without
+    full covariance: the fused rule on the card's fused route."""
+    L, n, D = data.inputs.shape
+    fused = data.inputs.device.type == "cuda" and _predict_route(data, kernel) == "fused"
+    return _predict_tile_size(n_testing, max_batch_size, n_train=n, n_lanes=L, fused=fused,
+                              n_dim=D, n_mean=data.dm.shape[-1])
+
+
+def _predict_tile_size(n_testing, max_batch_size, n_train=None, n_lanes=1, fused=False,
+                       n_dim=0, n_mean=0):
     """Query-tile size for chunked prediction, 0 for "do not chunk".
 
     ``None`` -> automatic: unchunked below the auto tile, tiled above.  The
     auto tile keeps ~4 ``(n_lanes, n_train, tile)`` buffers under
-    ``_PREDICT_TILE_BYTES``.  An explicit value is rounded up to a multiple
-    of 256.
+    ``_PREDICT_TILE_BYTES``.  With ``fused`` (the fused kernel on the card)
+    no such buffer exists: what lives on the device per query is its
+    ``n_dim`` inputs, its ``n_mean`` design-matrix terms and a mean and a
+    variance per lane, counted at 8 bytes each, and the tile keeps those
+    under ``_PREDICT_TILE_BYTES``, split evenly so that the padded last
+    tile computes little that is thrown away.  An explicit value is rounded
+    up to a multiple of 256.
     """
     if max_batch_size is None:
+        if fused:
+            per_query = 8 * (2 * max(1, n_lanes) + n_dim + n_mean)
+            cap = max(256, _PREDICT_TILE_BYTES // per_query // 256 * 256)
+            if n_testing <= cap:
+                return 0
+            n_tiles = -(-n_testing // cap)
+            return -(-n_testing // (256 * n_tiles)) * 256
         tile = _AUTO_PREDICT_TILE
         if n_train:
             budget = _PREDICT_TILE_BYTES // (16 * int(n_train) * max(1, n_lanes))
@@ -743,8 +789,8 @@ class GaussianProcess(GaussianProcessBase):
         testing = self._process_inputs(testing)
         dmtest = self.get_design_matrix(testing)
 
-        tile = 0 if full_cov else _predict_tile_size(
-            testing.shape[0], max_batch_size, n_train=self.n
+        tile = 0 if full_cov else _query_tile(
+            testing.shape[0], max_batch_size, self._data, self.kernel
         )
         args = (
             self._artifacts, self._data, self._tensor(testing),

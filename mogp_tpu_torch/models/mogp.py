@@ -17,14 +17,13 @@ import hashlib
 import warnings
 
 import numpy as np
-import torch
 
 from ..ops.kernels import KernelBase
 from .gp import (
     GaussianProcess,
     PredictResult,
     _host_summary,
-    _predict_tile_size,
+    _query_tile,
     cat_lanes,
     gp_fit,
     gp_predict,
@@ -34,6 +33,22 @@ from .gp import (
 from .priors import GPPriors
 
 __all__ = ["MultiOutputGP", "MultiOutputGPBase"]
+
+
+def _store_rows(out, rows, values, scale, shift=None):
+    """``out[rows] = values * scale (+ shift)`` in float64, ``values`` a
+    tensor of the lanes' results.  They cross to the host in their own type
+    (half the bytes of float64 for float32) and are widened there, in place
+    into the output rows when those are consecutive: the same float64
+    values as a cast on the device, without a second copy of them."""
+    host = values.cpu().numpy()
+    if rows == list(range(rows[0], rows[0] + len(rows))):
+        dst = out[rows[0]:rows[0] + len(rows)]
+        np.multiply(host, scale, out=dst)
+        if shift is not None:
+            dst += shift
+    else:
+        out[rows] = host * scale + (0.0 if shift is None else shift)
 
 
 class MultiOutputGPBase:
@@ -240,11 +255,12 @@ class MultiOutputGP(MultiOutputGPBase):
                 "hyperparameters have not been fit for emulators {}".format(unfit)
             )
 
-        mean_out = np.full((self.n_emulators, n_testing), np.nan)
-        if full_cov:
-            unc_out = np.full((self.n_emulators, n_testing, n_testing), np.nan)
-        else:
-            unc_out = np.full((self.n_emulators, n_testing), np.nan)
+        # every row is written once: NaN for the unfit emulators, the
+        # predictions for the others
+        mean_out = np.empty((self.n_emulators, n_testing))
+        unc_out = np.empty((self.n_emulators, n_testing) + ((n_testing,) if full_cov else ()))
+        mean_out[unfit] = np.nan
+        unc_out[unfit] = np.nan
 
         fit_indices = [i for i in range(self.n_emulators) if i not in set(unfit)]
         for indices in self._groups([self.emulators[i] for i in fit_indices]).values():
@@ -253,9 +269,7 @@ class MultiOutputGP(MultiOutputGPBase):
             em0 = ems[0]
             arts = cat_lanes([em._artifacts for em in ems])
             data = cat_lanes([em._data for em in ems])
-            tile = 0 if full_cov else _predict_tile_size(
-                n_testing, max_batch_size, n_train=self.n, n_lanes=len(ems)
-            )
+            tile = 0 if full_cov else _query_tile(n_testing, max_batch_size, data, em0.kernel)
             args = (
                 arts, data, em0._tensor(testing),
                 em0._tensor(em0.get_design_matrix(testing)), em0.kernel, em0.nugget_type,
@@ -272,10 +286,10 @@ class MultiOutputGP(MultiOutputGPBase):
             # standardized emulators map back to their targets' scale
             shift = np.array([em._t_mean for em in ems])[:, None]
             scale = np.array([em._t_std for em in ems])[:, None]
-            mean_out[global_idx] = mu.to("cpu", torch.float64).numpy() * scale + shift
+            _store_rows(mean_out, global_idx, mu, scale, shift)
             if unc:
                 var_scale = scale[:, :, None] ** 2 if full_cov else scale**2
-                unc_out[global_idx] = var.to("cpu", torch.float64).numpy() * var_scale
+                _store_rows(unc_out, global_idx, var, var_scale)
 
         return PredictResult(
             mean=mean_out, unc=(unc_out if unc else None), deriv=None

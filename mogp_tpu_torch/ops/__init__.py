@@ -1,7 +1,8 @@
 """Core math ops: kernels, factorizations, transforms, the optimizer.
 
 The CUDA kernels' wrappers are the submodules ``ops.kernel_matrix`` (K1),
-``ops.cholesky_batched`` (K2, and the route by size) and
+``ops.predict_fused`` (K1 redesigned as the fused prediction, and its
+route), ``ops.cholesky_batched`` (K2, and the route by size) and
 ``ops.cholesky_blocked`` (K3-K5); they are not re-exported here, so that
 each module (with its ``launches`` counter) and not its function answers
 to that name.  The batched L-BFGS is ``ops.lbfgs``.

@@ -104,6 +104,12 @@ def library():
         fn = lib.mogp_kernel_matrix
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.mogp_predict_fused
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.mogp_predict_fused_smem
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_longlong
         fn = lib.mogp_cholesky_batched
         fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int

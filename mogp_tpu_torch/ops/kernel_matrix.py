@@ -5,11 +5,16 @@ computes ``sigma2[l] * k(r2)`` for every output lane ``l``, training row
 and query point, where ``r2`` is the scaled squared distance and ``k`` is
 the squared exponential or Matern-5/2 function of ``ops/kernels.py``.
 
-* On a CUDA tensor it launches ``csrc/kernel_matrix.cu`` (built at first
-  use by ``ops/_build.py``) and adds one to :data:`launches`.  It does not
-  catch build or launch errors and never falls back to the plain version.
+* On a CUDA tensor it launches K1, ``mogp_kernel_matrix`` of
+  ``csrc/kernel_matrix.cu`` (built at first use by ``ops/_build.py``), and
+  adds one to :data:`launches`.  It does not catch build or launch errors
+  and never falls back to the plain version.
 * On a CPU tensor it calls :func:`kernel_matrix_plain`, which is what the
   CPU tests run.
+
+Prediction with a stationary or uniform kernel and no full covariance goes
+through ``ops/predict_fused.py`` instead, which builds the same tiles with
+the same device function and never writes them out; K1 serves the rest.
 """
 
 import torch
@@ -20,7 +25,7 @@ __all__ = ["kernel_matrix", "kernel_matrix_plain", "launches"]
 launches = 0
 
 _BASES = {"sqexp": 0, "mat52": 1}
-_ROWS_PER_BLOCK = 16  # kRows in csrc/kernel_matrix.cu
+_MAX_ROWS_PER_BLOCK = 56  # the smaller kK1MaxRows in csrc/kernel_matrix.cu
 _MAX_GRID_YZ = 65535
 _MAX_INT = 2**31 - 1
 
@@ -88,7 +93,7 @@ def kernel_matrix(x1, x2, exp_theta, sigma2, base="sqexp"):
     out = torch.empty((L, n, m), dtype=x1.dtype, device=x1.device)
     if out.numel() == 0:
         return out
-    if L > _MAX_GRID_YZ or -(-n // _ROWS_PER_BLOCK) > _MAX_GRID_YZ:
+    if L > _MAX_GRID_YZ or -(-n // _MAX_ROWS_PER_BLOCK) > _MAX_GRID_YZ:
         raise ValueError("kernel_matrix grid too large for L={}, n={}".format(L, n))
     if max(n, m, D) > _MAX_INT:
         raise ValueError("kernel_matrix sizes must fit in a 32-bit int")

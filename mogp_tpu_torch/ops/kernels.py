@@ -123,14 +123,23 @@ class KernelBase:
         ``(n, D)`` and a scalar or absent ``sigma2`` give ``(n, m)``.
         The product form stays on :meth:`kernel_f`.
         """
-        x1, x2, params = self._coerce(x1, x2, params)
-        if sigma2 is not None:
-            sigma2 = torch.as_tensor(sigma2, dtype=x1.dtype, device=x1.device)
         if self.form == "product":
+            x1, x2, params = self._coerce(x1, x2, params)
             K = self.kernel_f(x1, x2, params)
-            return K if sigma2 is None else sigma2[..., None, None] * K
-        lanes = params.ndim == 2
-        if not lanes:
+            if sigma2 is None:
+                return K
+            return torch.as_tensor(sigma2, dtype=x1.dtype, device=x1.device)[..., None, None] * K
+        lanes = torch.as_tensor(params).ndim == 2
+        K = kernel_matrix(*self.lane_inputs(x1, x2, params, sigma2), base=self.base)
+        return K if lanes else K[0]
+
+    def lane_inputs(self, x1, x2, params, sigma2=None):
+        """The inputs of the fused kernels (``ops/kernel_matrix.py``,
+        ``ops/predict_fused.py``) for a stationary or uniform form:
+        ``(x1 (L, n, D), x2 (m, D), exp_theta (L, D), sigma2 (L,))``, all
+        contiguous; arguments as :meth:`kernel_f_predict` takes them."""
+        x1, x2, params = self._coerce(x1, x2, params)
+        if params.ndim == 1:
             params = params[None]
             x1 = x1[None]
         L, D = params.shape[0], x1.shape[-1]
@@ -140,11 +149,8 @@ class KernelBase:
             exp_theta = exp_theta[:, :1].expand(L, D)
         if sigma2 is None:
             sigma2 = torch.ones(L, dtype=x1.dtype, device=x1.device)
-        K = kernel_matrix(
-            x1, x2.contiguous(), exp_theta.contiguous(),
-            sigma2.reshape(L).contiguous(), base=self.base,
-        )
-        return K if lanes else K[0]
+        sigma2 = torch.as_tensor(sigma2, dtype=x1.dtype, device=x1.device)
+        return x1, x2.contiguous(), exp_theta.contiguous(), sigma2.reshape(L).contiguous()
 
     def calc_r2(self, x1, x2, params):
         """Scaled squared distances; the product form returns the
