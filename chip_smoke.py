@@ -58,10 +58,24 @@ Phases (any failure raises, so the exit code is not 0):
    1e-9 of the CPU's.  No CUDA tensor may reach ``torch.linalg.cholesky_ex``
    in this phase.
 
-Around each of phases 3, 4 and 5 the kernels' launch counters are zeroed
-just before and read just after; every kernel of the path must have
-launched (the fused prediction in 3, K2 in 4, K1 and the routed blocked
-variant in 5).  The
+6. The UQ workflow at full width, on phase 3's configuration:
+   ``MaxiMinLHC`` of 210 samples in 14 parameters from 1000 candidates
+   scored on the card (the chosen one, re-scored in float64, must be the
+   best to 1e-5); a ``HistoryMatching`` sweep of 10^7 seeded Monte Carlo
+   coords (rank 1) through the device sweep (the fused kernel, no K1),
+   with its wall time, device time and peak memory, held against the host
+   path on the card on the first 2^20 coords and against float64 on the
+   CPU on the first 4096, NROY and RO partitioning the coords; validation
+   of all 64 outputs at 210 seeded points (standard and pivoted errors,
+   the scaled Mahalanobis distances; K1 launches) against float64 on the
+   CPU; a ``nugget="pivot"`` emulator with one input duplicated, fit and
+   predicted on the unfused route (no fused launch), its log posterior
+   within 1e-3 of float64 on the CPU.
+
+Around each of phases 3, 4, 5 and 6's sweep the kernels' launch counters
+are zeroed just before and read just after; every kernel of the path must
+have launched (the fused prediction in 3 and 6, K2 in 4, K1 and the
+routed blocked variant in 5).  The
 blocked variants the route does not take are checked and timed in 2c and
 listed with the launches they made in 5 (none) and ``"routed": false``.
 The last three lines of standard output are a JSON object describing each
@@ -156,6 +170,68 @@ def make_thetas(seed=0):
          rng.uniform(-0.5, 0.5, size=(N_OUTPUTS, 1))],
         axis=1,
     )
+
+
+# phase 6: the UQ workflow at full width on the headline configuration.
+# The design: MaxiMinLHC of N_POINTS samples in N_DIM parameters from
+# N_DESIGN_TRIES candidates; the sweep: N_SWEEP Monte Carlo coords
+# (rank 1, no discrepancy), checked against the host path on the first
+# N_SWEEP_HOST and against the CPU in float64 on the first N_CHECK; the
+# validation: N_VALID seeded points.
+N_DESIGN_TRIES, N_SWEEP, N_SWEEP_HOST, N_VALID = 1000, 10**7, 2**20, 210
+# the chosen design's float64 score against the best float64 score of the
+# same candidates (float32 scores round at ~1e-7 of the distances)
+DESIGN_RTOL = 1e-5
+# the device sweep (float32 I on the card) against the host path (float64
+# I from the same float32 predictions): four float32 roundings of I (five
+# for standardized emulators, whose observations the sweep maps into their
+# units and rounds to float32)
+SWEEP_HOST_RTOL = 1e-6
+# float32 on the card vs float64 on the CPU, ten times mogp_tpu's own
+# float32-vs-float64 gap on a CPU for the same quantities
+# (scripts/uq_reference_gap.py: 2.96e-5, 1.51e-4, 1.57e-4): I on the
+# first N_CHECK coords (relative, I from 1.8 to 10.9); the z-scores of the
+# standard errors (absolute); the scaled Mahalanobis distances (absolute,
+# from -6.5 to 13.8).  The pivoted errors' permutations differ between
+# the two types for 2 of 64 outputs in mogp_tpu too, so they are held
+# through the Mahalanobis distances, which do not depend on the order.
+UQ_TOL = {"I_rel": 3.0e-4, "z": 1.5e-3, "mahal_scaled": 1.6e-3}
+# the pivot-nugget emulator's log posterior, float32 card vs float64 CPU
+PIVOT_LOGPOST_RTOL = 1e-3
+
+
+def simulator(x, n_outputs, seed=1234):
+    """The function of ``make_data`` without its noise, at points ``x``
+    ``(m, N_DIM)``: ``(n_outputs, m)``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    rng.uniform(0.0, 1.0, size=(N_POINTS, N_DIM))  # make_data's inputs
+    w = rng.randn(n_outputs, N_DIM)
+    phase = rng.uniform(0, 2 * np.pi, size=n_outputs)
+    return (np.sin(x @ w.T + phase) + 0.3 * (x**2) @ np.abs(w).T).T.copy()
+
+
+def uq_problem(seed=5):
+    """Phase 6's observations (the simulator at a seeded point, seeded
+    variances) and validation set (seeded points, simulator targets)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    x_star = rng.uniform(size=(1, N_DIM))
+    obs = [simulator(x_star, N_OUTPUTS)[:, 0], rng.uniform(0.01, 0.05, size=N_OUTPUTS)]
+    xv = rng.uniform(size=(N_VALID, N_DIM))
+    return obs, xv, simulator(xv, N_OUTPUTS)
+
+
+def uq_coords(design_cls, n, seed=6):
+    """``n`` Monte Carlo coords from ``design_cls(N_DIM)`` (either
+    package's ``MonteCarloDesign``), seeded: the first rows of a larger
+    draw are a smaller draw."""
+    import numpy as np
+
+    np.random.seed(seed)
+    return design_cls(N_DIM).sample(n)
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -1079,6 +1155,200 @@ def phase_fit(mogp_tpu_torch, km, kb, label):
     return launches
 
 
+def _unpermuted(errors):
+    """Standard errors ``[(e, P), ...]`` as z-scores in the points' order."""
+    import numpy as np
+
+    z = np.empty((len(errors), len(errors[0][0])))
+    for i, (e, P) in enumerate(errors):
+        z[i, P] = e
+    return z
+
+
+def phase_uq(mogp_tpu_torch, km, kb, pf, label):
+    """The UQ workflow at full width (module doc, phase 6): the design, the
+    10^7-point history-matching sweep, validation and a pivot-nugget
+    emulator; returns the sweep's launches of the fused kernel."""
+    import numpy as np
+    import torch
+    from mogp_tpu_torch.uq import history_matching as thm
+    from mogp_tpu_torch.uq import validation
+    from mogp_tpu_torch.uq.experimental_design import MaxiMinLHC
+
+    t_phase = time.perf_counter()
+    # design: the chosen candidate, re-scored in float64, must be the best
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    design = mogp_tpu_torch.MaxiMinLHC(N_DIM, device="cuda").sample(N_POINTS,
+                                                                  n_tries=N_DESIGN_TRIES)
+    design_s = time.perf_counter() - t0
+    np.random.seed(0)  # the candidates MaxiMinLHC drew (mogp_tpu's draws)
+    shape = (N_DESIGN_TRIES, N_POINTS, N_DIM)
+    cands = (np.argsort(np.random.random(shape), axis=1) + np.random.random(shape)) / N_POINTS
+    MaxiMinLHC._score_candidates(cands, "cuda")
+    t0 = time.perf_counter()
+    MaxiMinLHC._score_candidates(cands, "cuda")
+    score_s = time.perf_counter() - t0
+    scores64 = MaxiMinLHC._score_candidates(cands, "cpu")
+    chosen = np.flatnonzero((cands == design).all(axis=(1, 2)))
+    gap = float((scores64.max() - scores64[chosen].max()) / scores64.max()) if chosen.size else 1.0
+    print("phase 6: MaxiMinLHC {} samples x {} parameters from {} candidates on {}: sample {} s, "
+          "scoring on the card {} s (warm); chosen candidate {} scores {} in float64, the best "
+          "{}: rel gap {} (limit {})".format(
+              N_POINTS, N_DIM, N_DESIGN_TRIES, label, design_s, score_s, chosen.tolist(),
+              scores64[chosen].tolist(), scores64.max(), gap, DESIGN_RTOL))
+    if gap > DESIGN_RTOL:
+        raise AssertionError("the card's MaxiMin choice is not the float64 best")
+
+    # the sweep: 10^7 coords through the fused kernel, top-k on the card
+    x, y = make_data(N_OUTPUTS)
+    thetas = make_thetas()
+    mgp = mogp_tpu_torch.MultiOutputGP(x, y, nugget="adaptive", device="cuda")
+    mgp.fit(thetas)
+    obs, xv, yv = uq_problem()
+    t0 = time.perf_counter()
+    coords = uq_coords(mogp_tpu_torch.MonteCarloDesign, N_SWEEP)
+    coords_s = time.perf_counter() - t0
+    if N_SWEEP < thm._DEVICE_SWEEP_MIN_COORDS:
+        raise AssertionError("the sweep is below the device sweep's threshold")
+    hm = mogp_tpu_torch.HistoryMatching(gp=mgp, obs=obs, coords=coords)
+    hm.get_implausibility(0.0, 1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km.launches = kb.launches = pf.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    I = hm.get_implausibility(0.0, 1)
+    end.record()
+    end.synchronize()
+    wall_s = time.perf_counter() - t0
+    fused, k1 = pf.launches, km.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        hm.get_implausibility(0.0, 1)
+        torch.cuda.synchronize()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    print("phase 6: HistoryMatching sweep of {} coords x {} outputs (rank 1) on {}: coords drawn "
+          "in {} s; get_implausibility {} s wall, {} ms device span (CUDA events), {} ms device "
+          "busy (torch.profiler, a second run); predict_fused launches {}, kernel_matrix launches "
+          "{}; peak device memory {} GB; {} points/s".format(
+              N_SWEEP, N_OUTPUTS, label, coords_s, wall_s, start.elapsed_time(end), busy_ms,
+              fused, k1, peak / 1e9, N_SWEEP / wall_s))
+    if I.shape != (N_SWEEP,) or not np.isfinite(I).all():
+        raise AssertionError("the sweep's implausibilities are not finite of shape (N_SWEEP,)")
+    if fused <= 0 or k1 != 0:
+        raise AssertionError("the sweep did not launch predict_fused, or launched kernel_matrix")
+
+    nroy, ro = np.asarray(hm.get_NROY(), dtype=np.int64), np.asarray(hm.get_RO(), dtype=np.int64)
+    count = np.zeros(N_SWEEP, dtype=np.int8)
+    np.add.at(count, nroy, 1)
+    np.add.at(count, ro, 1)
+    if not (count == 1).all():
+        raise AssertionError("NROY and RO do not partition the coords")
+
+    saved = thm._DEVICE_SWEEP_MIN_COORDS
+    thm._DEVICE_SWEEP_MIN_COORDS = N_SWEEP + 1  # the host path, on the card
+    try:
+        t0 = time.perf_counter()
+        I_host = mogp_tpu_torch.HistoryMatching(
+            gp=mgp, obs=obs, coords=coords[:N_SWEEP_HOST]).get_implausibility(0.0, 1)
+        host_s = time.perf_counter() - t0
+    finally:
+        thm._DEVICE_SWEEP_MIN_COORDS = saved
+    d_host = float(np.max(np.abs(I[:N_SWEEP_HOST] - I_host) / I_host))
+
+    t0 = time.perf_counter()
+    ref = mogp_tpu_torch.MultiOutputGP(x, y, nugget="adaptive", device="cpu")
+    ref.fit(thetas)
+    I_cpu = mogp_tpu_torch.HistoryMatching(
+        gp=ref, obs=obs, coords=coords[:N_CHECK]).get_implausibility(0.0, 1)
+    d_cpu = float(np.max(np.abs(I[:N_CHECK] - I_cpu) / I_cpu))
+    ok = d_host <= SWEEP_HOST_RTOL and d_cpu <= UQ_TOL["I_rel"]
+    print("phase 6: the first {} coords by the host path on the card ({} s): max rel d I {} "
+          "(limit {}); the first {} against float64 on the CPU ({} s): max rel d I {} (limit "
+          "{}); NROY {} RO {}: {}".format(
+              N_SWEEP_HOST, host_s, d_host, SWEEP_HOST_RTOL, N_CHECK,
+              time.perf_counter() - t0, d_cpu, UQ_TOL["I_rel"], nroy.size, ro.size,
+              "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("the device sweep disagrees with the host path or float64")
+
+    # standardized emulators: the sweep maps the observations into their
+    # units, the host path maps the predictions back; both on the card
+    std = mogp_tpu_torch.MultiOutputGP(x, y, nugget="adaptive", standardize=True, device="cuda")
+    std.fit(thetas)
+    saved = thm._DEVICE_SWEEP_MIN_COORDS
+    I_std = []
+    try:
+        for threshold in (1, N_SWEEP_HOST + 1):  # the device sweep, then the host path
+            thm._DEVICE_SWEEP_MIN_COORDS = threshold
+            I_std.append(mogp_tpu_torch.HistoryMatching(
+                gp=std, obs=obs, coords=coords[:N_SWEEP_HOST]).get_implausibility(0.0, 1))
+    finally:
+        thm._DEVICE_SWEEP_MIN_COORDS = saved
+    d_std = float(np.max(np.abs(I_std[0] - I_std[1]) / I_std[1]))
+    print("phase 6: standardize=True, the first {} coords, the device sweep against the host path "
+          "on the card: max rel d I {} (limit {}): {}".format(
+              N_SWEEP_HOST, d_std, SWEEP_HOST_RTOL, "ok" if d_std <= SWEEP_HOST_RTOL else "FAIL"))
+    if not d_std <= SWEEP_HOST_RTOL:
+        raise AssertionError("the device sweep of standardized emulators disagrees with the host "
+                             "path")
+
+    # validation: full-covariance predictions through K1, pivoted on the card
+    km.launches = pf.launches = 0
+    t0 = time.perf_counter()
+    se = validation.standard_errors(mgp, xv, yv)
+    pe = validation.pivoted_errors(mgp, xv, yv)
+    ms = validation.mahalanobis(mgp, xv, yv, scaled=True)
+    val_s = time.perf_counter() - t0
+    val_k1 = km.launches
+    t0 = time.perf_counter()
+    se_ref = validation.standard_errors(ref, xv, yv)
+    ms_ref = validation.mahalanobis(ref, xv, yv, scaled=True)
+    pe_ref = validation.pivoted_errors(ref, xv, yv)
+    ref_s = time.perf_counter() - t0
+    d_z = float(np.max(np.abs(_unpermuted(se) - _unpermuted(se_ref))))
+    d_m = float(np.max(np.abs(ms - ms_ref)))
+    same_P = sum(bool(np.array_equal(a[1], b[1])) for a, b in zip(pe, pe_ref))
+    ok = (val_k1 > 0 and d_z <= UQ_TOL["z"] and d_m <= UQ_TOL["mahal_scaled"]
+          and np.isfinite(ms).all() and all(np.isfinite(e).all() for e, _ in pe))
+    print("phase 6: validation of {} outputs at {} points on {}: {} s (kernel_matrix launches {}); "
+          "float64 CPU {} s: max |d z| {} (limit {}), max |d scaled Mahalanobis| {} (limit {}); "
+          "pivoted errors with the CPU's permutation {} of {}: {}".format(
+              N_OUTPUTS, N_VALID, label, val_s, val_k1, ref_s, d_z, UQ_TOL["z"], d_m,
+              UQ_TOL["mahal_scaled"], same_P, N_OUTPUTS, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("validation on the card disagrees with float64 or missed K1")
+
+    # the pivot nugget: one duplicated input, the unfused route
+    xp, yp = np.vstack([x, x[:1]]), np.append(y[0], y[0][0])
+    km.launches = kb.launches = pf.launches = 0
+    gpp = mogp_tpu_torch.GaussianProcess(xp, yp, nugget="pivot", device="cuda")
+    gpp.fit(thetas[0])
+    res = gpp.predict(coords[:N_CHECK])
+    launches = (pf.launches, km.launches, kb.launches)
+    cpu = mogp_tpu_torch.GaussianProcess(xp, yp, nugget="pivot", device="cpu")
+    cpu.fit(thetas[0])
+    d_lp = abs(gpp.current_logpost - cpu.current_logpost) / abs(cpu.current_logpost)
+    ok = (launches[0] == 0 and launches[1] > 0 and launches[2] > 0 and d_lp <= PIVOT_LOGPOST_RTOL
+          and np.isfinite(res.mean).all() and (res.unc >= 0).all())
+    print("phase 6: GaussianProcess(nugget=\"pivot\") n={} (one row duplicated) on {}: rank {} "
+          "(CPU {}), logpost {} vs float64 CPU {}: rel {} (limit {}); launches predict_fused {}, "
+          "kernel_matrix {}, cholesky_batched {}: {}".format(
+              N_POINTS + 1, label, int(gpp.Kinv.rank), int(cpu.Kinv.rank), gpp.current_logpost,
+              cpu.current_logpost, d_lp, PIVOT_LOGPOST_RTOL, *launches, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("the pivot-nugget emulator took the fused route or disagrees")
+    print("phase 6: {} s".format(time.perf_counter() - t_phase))
+    return fused
+
+
 def main():
     import torch
 
@@ -1132,6 +1402,7 @@ def main():
     for rec, v in zip(blocked_records, kbl.VARIANTS):
         rec["launches"] = blocked_launches[v]
         rec["routed"] = v == route
+    phase_uq(mogp_tpu_torch, km, kb, pf, smi)
 
     print(json.dumps({"kernels": [record, fused_record, chol_record, *blocked_records]}))
     print(smi)

@@ -9,9 +9,14 @@ CUDA kernels (``csrc/kernel_matrix.cu``, ``csrc/cholesky_batched.cu``,
 ``csrc/cholesky_blocked.cu``).  This package never imports ``jax``.
 
 Ported so far: the serving path -- construct ``GaussianProcess`` /
-``MultiOutputGP``, ``fit`` at given hyperparameters, ``predict`` -- the
-MAP fit (``fit_GP_MAP``, batched L-BFGS over outputs x restarts, with the
-race schedule), and ``.npz`` checkpoints.  The UQ toolchain comes later.
+``MultiOutputGP`` (every nugget type, ``"pivot"`` included), ``fit`` at
+given hyperparameters, ``predict`` -- the MAP fit (``fit_GP_MAP``, batched
+L-BFGS over outputs x restarts, with the race schedule), ``.npz``
+checkpoints, ``MeanFunction``, and the UQ workflow's one-shot designs
+(``MonteCarloDesign``, ``LatinHypercubeDesign``, ``MaxiMinLHC``), history
+matching (``HistoryMatching``, whose large sweeps run on the card through
+the fused prediction kernel) and ``validation``.  Sequential design,
+gKDR, MCMC / VI / SMC and the multi-device layer come later.
 """
 
 __version__ = "0.1.0"
@@ -22,6 +27,7 @@ from .ops import kernels as Kernel
 
 from .models.fitting import fit_GP_MAP
 from .models.gp import GaussianProcess, PredictResult
+from .models.meanfunction import MeanFunction
 from .models.mogp import MultiOutputGP
 from .models.params import GPParams
 from .models.priors import (
@@ -33,9 +39,24 @@ from .models.priors import (
     NormalPrior,
     WeakPrior,
 )
+from .uq import validation
+from .uq.experimental_design import (
+    ExperimentalDesign,
+    LatinHypercubeDesign,
+    MaxiMinLHC,
+    MonteCarloDesign,
+)
+from .uq.history_matching import HistoryMatching
 from .utils.checkpoint import load_gp, load_mogp
 
 __all__ = [
+    "ExperimentalDesign",
+    "MonteCarloDesign",
+    "LatinHypercubeDesign",
+    "MaxiMinLHC",
+    "HistoryMatching",
+    "validation",
+    "MeanFunction",
     "Kernel",
     "Priors",
     "GaussianProcess",

@@ -15,6 +15,7 @@ from .gp import (
 )
 from .fitting import fit_GP_MAP
 from .meanfun import design_matrix, parse_formula
+from .meanfunction import MeanFunction
 from .mogp import MultiOutputGP
 from .params import GPParams
 from .priors import (
@@ -44,6 +45,7 @@ __all__ = [
     "fit_GP_MAP",
     "design_matrix",
     "parse_formula",
+    "MeanFunction",
     "MultiOutputGP",
     "GPParams",
     "GPPriors",

@@ -77,7 +77,8 @@ class FitArtifacts(NamedTuple):
     """Everything the reference ``fit`` caches, lanes first."""
 
     raw: torch.Tensor          # (L, P) raw hyperparameters used for the fit
-    Kinv: ChoFactor            # factor of K (+ nugget), (L, n, n)
+    Kinv: ChoFactor            # factor of K (+ nugget), (L, n, n); a
+                               # PivotedChoFactor for nugget_type="pivot"
     Ainv: ChoFactor            # factor of A = H^T K^-1 H + B^-1, (L, M, M)
     mean: torch.Tensor         # (L, M) analytic mean coefficients
     Kinv_t_mean: torch.Tensor  # (L, n) K^-1 (y - H mean)
@@ -269,7 +270,7 @@ def _gp_predict_impl(
     sigma2 = torch.exp(artifacts.raw[:, n_corr])
     with_nugget = include_nugget and nugget_type != "pivot"
 
-    if _predict_route(data, kernel, full_cov) == "fused":
+    if _predict_route(data, kernel, full_cov, nugget_type) == "fused":
         var_shift = sigma2 + artifacts.nugget if with_nugget else sigma2
         return pf.predict_fused(
             *kernel.lane_inputs(data.inputs, testing, corr_raw, sigma2),
@@ -371,18 +372,22 @@ def tiled_query_map(testing, dmtest, tile, body):
     return [body(t3[i], dm3[i]) for i in range(n_tiles)], m
 
 
-def _predict_route(data, kernel, full_cov=False):
+def _predict_route(data, kernel, full_cov=False, nugget_type=None):
     """``ops/predict_fused.py``'s route for these lanes: ``"fused"`` or
-    ``"unfused"``."""
+    ``"unfused"``.  ``nugget_type="pivot"`` is always unfused: the fused
+    kernel solves with an unpermuted factor and no rank mask."""
+    if nugget_type == "pivot":
+        return "unfused"
     return pf.route(data.inputs.device, data.inputs.shape[-2], data.dm.shape[-1],
                     kernel.form, full_cov, data.inputs.dtype)
 
 
-def _query_tile(n_testing, max_batch_size, data, kernel):
+def _query_tile(n_testing, max_batch_size, data, kernel, nugget_type=None):
     """:func:`_predict_tile_size` for predicting ``data``'s lanes without
     full covariance: the fused rule on the card's fused route."""
     L, n, D = data.inputs.shape
-    fused = data.inputs.device.type == "cuda" and _predict_route(data, kernel) == "fused"
+    fused = (data.inputs.device.type == "cuda"
+             and _predict_route(data, kernel, nugget_type=nugget_type) == "fused")
     return _predict_tile_size(n_testing, max_batch_size, n_train=n, n_lanes=L, fused=fused,
                               n_dim=D, n_mean=data.dm.shape[-1])
 
@@ -790,7 +795,7 @@ class GaussianProcess(GaussianProcessBase):
         dmtest = self.get_design_matrix(testing)
 
         tile = 0 if full_cov else _query_tile(
-            testing.shape[0], max_batch_size, self._data, self.kernel
+            testing.shape[0], max_batch_size, self._data, self.kernel, self._nugget_type
         )
         args = (
             self._artifacts, self._data, self._tensor(testing),

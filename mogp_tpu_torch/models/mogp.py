@@ -17,6 +17,7 @@ import hashlib
 import warnings
 
 import numpy as np
+import torch
 
 from ..ops.kernels import KernelBase
 from .gp import (
@@ -27,7 +28,6 @@ from .gp import (
     cat_lanes,
     gp_fit,
     gp_predict,
-    gp_predict_tiled,
     take_lanes,
 )
 from .priors import GPPriors
@@ -49,6 +49,27 @@ def _store_rows(out, rows, values, scale, shift=None):
             dst += shift
     else:
         out[rows] = host * scale + (0.0 if shift is None else shift)
+
+
+def _cat_tiles(tiles):
+    """One ``(mu, var)`` from the query tiles of
+    :meth:`MultiOutputGP._predict_groups`."""
+    parts = list(tiles)
+    if len(parts) == 1:
+        return parts[0]
+    mu = torch.cat([p[0] for p in parts], dim=-1)
+    return mu, None if parts[0][1] is None else torch.cat([p[1] for p in parts], dim=-1)
+
+
+def _group_tiles(arts, data, testing, dmtest, kernel, nugget_type, tile, **kw):
+    """``gp_predict`` of one group over consecutive query tiles of
+    ``tile`` points (all at once for 0), each when it is asked for."""
+    if not tile:
+        yield gp_predict(arts, data, testing, dmtest, kernel, nugget_type, **kw)
+        return
+    for c0 in range(0, testing.shape[0], tile):
+        yield gp_predict(arts, data, testing[c0:c0 + tile], dmtest[c0:c0 + tile], kernel,
+                         nugget_type, **kw)
 
 
 class MultiOutputGPBase:
@@ -263,37 +284,52 @@ class MultiOutputGP(MultiOutputGPBase):
         unc_out[unfit] = np.nan
 
         fit_indices = [i for i in range(self.n_emulators) if i not in set(unfit)]
-        for indices in self._groups([self.emulators[i] for i in fit_indices]).values():
-            global_idx = [fit_indices[i] for i in indices]
-            ems = [self.emulators[i] for i in global_idx]
-            em0 = ems[0]
-            arts = cat_lanes([em._artifacts for em in ems])
-            data = cat_lanes([em._data for em in ems])
-            tile = 0 if full_cov else _query_tile(n_testing, max_batch_size, data, em0.kernel)
-            args = (
-                arts, data, em0._tensor(testing),
-                em0._tensor(em0.get_design_matrix(testing)), em0.kernel, em0.nugget_type,
-            )
-            if tile:
-                mu, var = gp_predict_tiled(
-                    *args, unc=bool(unc), include_nugget=bool(include_nugget), tile=tile,
-                )
-            else:
-                mu, var = gp_predict(
-                    *args, unc=bool(unc), include_nugget=bool(include_nugget),
-                    full_cov=bool(full_cov),
-                )
-            # standardized emulators map back to their targets' scale
-            shift = np.array([em._t_mean for em in ems])[:, None]
-            scale = np.array([em._t_std for em in ems])[:, None]
-            _store_rows(mean_out, global_idx, mu, scale, shift)
+        for rows, tiles, scale, shift in self._predict_groups(
+            testing, fit_indices, unc=unc, include_nugget=include_nugget, full_cov=full_cov,
+            max_batch_size=max_batch_size,
+        ):
+            mu, var = _cat_tiles(tiles)
+            _store_rows(mean_out, rows, mu, scale[:, None], shift[:, None])
             if unc:
-                var_scale = scale[:, :, None] ** 2 if full_cov else scale**2
-                _store_rows(unc_out, global_idx, var, var_scale)
+                var_scale = scale[:, None, None] ** 2 if full_cov else scale[:, None] ** 2
+                _store_rows(unc_out, rows, var, var_scale)
 
         return PredictResult(
             mean=mean_out, unc=(unc_out if unc else None), deriv=None
         )
+
+    def _predict_groups(self, testing, indices, unc=True, include_nugget=True, full_cov=False,
+                        max_batch_size=None):
+        """The one assembly of a prediction of the fitted emulators
+        ``indices`` at ``testing`` (2D float64), for :meth:`predict` and
+        ``HistoryMatching``'s device sweep.  Per signature group it yields
+        ``(rows, tiles, scale, shift)``:
+
+        * ``rows``: the group's emulator indices;
+        * ``tiles``: ``(mu, var)`` on the group's device over consecutive
+          query tiles (one when the query axis is not chunked, always one
+          with ``full_cov``), each computed when it is asked for, in the
+          emulators' own units; ``var`` is ``None`` unless ``unc``;
+        * ``scale``, ``shift``: ``(G,)`` float64, the map of standardized
+          emulators to their targets' units, ``mu * scale + shift`` and
+          ``var * scale**2``.  The consumer applies it in float64, not the
+          lanes' float32: :meth:`predict` on the host to the results, the
+          sweep to the observations.
+        """
+        for group in self._groups([self.emulators[i] for i in indices]).values():
+            rows = [indices[i] for i in group]
+            ems = [self.emulators[i] for i in rows]
+            em0 = ems[0]
+            data = cat_lanes([em._data for em in ems])
+            tile = 0 if full_cov else _query_tile(testing.shape[0], max_batch_size, data,
+                                                  em0.kernel, em0.nugget_type)
+            tiles = _group_tiles(
+                cat_lanes([em._artifacts for em in ems]), data, em0._tensor(testing),
+                em0._tensor(em0.get_design_matrix(testing)), em0.kernel, em0.nugget_type, tile,
+                unc=bool(unc), include_nugget=bool(include_nugget), full_cov=bool(full_cov),
+            )
+            yield (rows, tiles, np.array([em._t_std for em in ems]),
+                   np.array([em._t_mean for em in ems]))
 
     def __call__(self, testing, processes=None):
         return self.predict(testing, unc=False, deriv=False, processes=processes)[0]

@@ -8,7 +8,14 @@ each module (with its ``launches`` counter) and not its function answers
 to that name.  The batched L-BFGS is ``ops.lbfgs``.
 """
 
-from .cholesky import ChoFactor, cholesky_factor, fixed_cholesky, jit_cholesky
+from .cholesky import (
+    ChoFactor,
+    PivotedChoFactor,
+    cholesky_factor,
+    fixed_cholesky,
+    jit_cholesky,
+    pivoted_cholesky,
+)
 from .kernels import (
     KernelBase,
     Matern52,
@@ -23,6 +30,8 @@ from .transforms import CorrTransform, CovTransform
 
 __all__ = [
     "ChoFactor",
+    "PivotedChoFactor",
+    "pivoted_cholesky",
     "cholesky_factor",
     "fixed_cholesky",
     "jit_cholesky",

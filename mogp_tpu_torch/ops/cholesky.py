@@ -7,6 +7,8 @@ Port of ``mogp_tpu/ops/cholesky.py``:
   diagonal jitter of ``mean(diag(A)) * 1e-6 * 10**k``; the first candidate
   that factors wins, per lane.  The optimizer's trajectory may use the
   sparse (3-rung) or single (1-rung) ladder instead.
+* ``pivoted_cholesky`` -- greedy diagonal pivoting with rank detection
+  (``nugget="pivot"``), returning a :class:`PivotedChoFactor`.
 * ``cholesky_factor`` -- dispatch on the nugget type.
 
 Every factorization goes through ``ops/cholesky_batched.py``'s
@@ -28,8 +30,13 @@ Hessians).
 :func:`_chol_of_sum`, which has the same backward and costs no second
 factorization.
 
-``"pivot"`` (pivoted Cholesky) is not ported yet; ``ops/blocked.py`` is TPU
-tuning and is not ported.
+:func:`pivoted_cholesky` finds each lane's permutation and rank without
+autograd, then builds the factor differentiably from the permuted matrix:
+the routed Cholesky of the rank-``r`` leading block, the rows below it by
+one triangular solve, and the reference's synthetic tail diagonal.  No
+step of the search is kept for the backward pass.
+
+``ops/blocked.py`` is TPU tuning and is not ported.
 """
 
 from typing import NamedTuple
@@ -38,7 +45,15 @@ import torch
 
 from .cholesky_batched import cholesky_batched
 
-__all__ = ["ChoFactor", "fixed_cholesky", "jit_cholesky", "jitter_ladder", "cholesky_factor"]
+__all__ = [
+    "ChoFactor",
+    "PivotedChoFactor",
+    "fixed_cholesky",
+    "jit_cholesky",
+    "jitter_ladder",
+    "pivoted_cholesky",
+    "cholesky_factor",
+]
 
 # Above this n, ``jit_cholesky`` factorizes the jitter candidates one after
 # another and stops when every lane has one that factors, instead of
@@ -162,6 +177,51 @@ class ChoFactor(NamedTuple):
         return 2.0 * torch.sum(torch.log(diag), dim=-1)
 
 
+def _permute_rows(b, P):
+    """``b[..., P]`` for vectors ``(..., n)``, ``b[..., P, :]`` for
+    ``(..., n, k)``, per lane (``P`` is ``(..., n)``)."""
+    if b.ndim == P.ndim:
+        return torch.gather(b, -1, P)
+    return torch.gather(b, -2, P[..., None].expand(*P.shape, b.shape[-1]))
+
+
+class PivotedChoFactor(NamedTuple):
+    """Pivoted Cholesky factor with per-lane permutation and rank: ``L``
+    ``(..., n, n)``, ``P`` ``(..., n)`` int64 with ``A[P][:, P] ~= L L^T``,
+    ``rank`` ``(...)`` int64.  Solves drop the components in the
+    rank-deficient tail (the reference's "skip collinear rows")."""
+
+    L: torch.Tensor
+    P: torch.Tensor
+    rank: torch.Tensor
+
+    def _mask(self, x):
+        keep = torch.arange(self.L.shape[-1], device=x.device) < self.rank[..., None]
+        if x.ndim > self.P.ndim:
+            keep = keep[..., None]
+        return torch.where(keep, x, 0.0)
+
+    def _unpermute(self, x):
+        return _permute_rows(x, torch.argsort(self.P, dim=-1))
+
+    def solve(self, b):
+        """Permuted solve with rank masking."""
+        return self.solve_from_half(self.solve_L(b))
+
+    def solve_L(self, b):
+        """Permuted lower solve with rank masking."""
+        return self._mask(_solve_lower(self.L, _permute_rows(b, self.P)))
+
+    def solve_from_half(self, w):
+        """Complete a full solve from ``w = solve_L(b)``: the upper sweep
+        and the inverse permutation (the rank mask is already in ``w``)."""
+        return self._unpermute(_solve_lower_t(self.L, w))
+
+    def logdet(self):
+        diag = torch.diagonal(self.L, dim1=-2, dim2=-1)
+        return 2.0 * torch.sum(torch.log(diag), dim=-1)
+
+
 def fixed_cholesky(A):
     """Cholesky decomposition with a fixed noise level."""
     return _chol(A)
@@ -247,25 +307,119 @@ def jit_cholesky(A, maxtries=5, reuse_factor=True, sparse_ladder=False,
     return ChoFactor(L), jitter
 
 
+@torch.no_grad()
+def _pivot_search(A):
+    """Permutation ``(B, n)`` and rank ``(B,)`` of ``mogp_tpu``'s pivoted
+    Cholesky of ``A`` ``(B, n, n)``.
+
+    The same steps as ``mogp_tpu/ops/cholesky.py::pivoted_cholesky``: at
+    step ``k`` the position of the largest remaining Schur-complement
+    diagonal (the first one on ties, in the current order) is swapped
+    into ``k``; a lane stays active while its pivots exceed ``n * eps *
+    max(diag A)``, and its later steps only swap by the frozen diagonal.
+    The factor's columns are kept in the original row order (``G``), so
+    that no matrix is swapped, only the diagonal ``d`` and ``perm``."""
+    B, n, _ = A.shape
+    dtype, device = A.dtype, A.device
+    eps = torch.finfo(dtype).eps
+    lanes = torch.arange(B, device=device)
+    idx = torch.arange(n, device=device)
+    d = torch.diagonal(A, dim1=-2, dim2=-1).clone()
+    tol = n * eps * d.max(dim=-1).values
+    perm = idx.expand(B, n).clone()
+    G = torch.zeros_like(A)
+    chosen = torch.zeros(B, n, dtype=torch.bool, device=device)
+    rank = torch.zeros(B, dtype=torch.int64, device=device)
+    active = torch.ones(B, dtype=torch.bool, device=device)
+    for k in range(n):
+        j = k + torch.argmax(d[:, k:], dim=-1)
+        dk, pk = d[:, k].clone(), perm[:, k].clone()
+        d[:, k], perm[:, k] = d[lanes, j], perm[lanes, j]
+        d[lanes, j], perm[lanes, j] = dk, pk
+        pivot, p = d[:, k], perm[:, k]
+        active &= pivot > tol
+        lkk = torch.sqrt(torch.clamp_min(pivot, eps))
+        # column k of L, rows in the original order: (A[:, p] - L[:, :k] L[p, :k]) / lkk
+        col = (A[lanes, :, p] - (G[:, :, :k] @ G[lanes, p, :k, None])[..., 0]) / lkk[:, None]
+        chosen[lanes, p] = True
+        col = torch.where(chosen, 0.0, col)
+        col[lanes, p] = lkk
+        G[:, :, k] = torch.where(active[:, None], col, 0.0)
+        later = active[:, None] & (idx > k)
+        d = torch.where(later, d - torch.gather(col, 1, perm) ** 2, d)
+        rank += active.to(torch.int64)
+    return perm, rank
+
+
+def pivoted_cholesky(A):
+    """Pivoted Cholesky of ``(..., n, n)``: ``PivotedChoFactor(L, P, rank)``.
+
+    Port of ``mogp_tpu/ops/cholesky.py:391-464``: greedy diagonal pivoting,
+    the rank at the LAPACK ``dpstrf`` tolerance ``n * eps * max(diag)``, the
+    deficient columns zeroed and their diagonal replaced by the reference's
+    decreasing sequence ``L[r-1, r-1] * r! / (i+1)!`` (through ``lgamma``),
+    so log-determinants agree.
+
+    The permutation and rank come from :func:`_pivot_search` outside
+    autograd.  The factor is then built, differentiably in ``A``, from the
+    permuted matrix: the routed Cholesky (K2 on the card at the emulators'
+    sizes) of the rank-``r`` leading block, masked to the identity past
+    ``r``; the rows below it as ``A21 L11^-T``; the tail diagonal.  It is
+    the factor of the search, and autograd keeps one ``(n, n)`` matrix per
+    step of this build, not one per pivot.
+    """
+    shape, n = A.shape, A.shape[-1]
+    A = A.reshape(-1, n, n)
+    perm, rank = _pivot_search(A.detach())
+    L = _pivoted_factor(A, perm, rank)
+    return PivotedChoFactor(L.reshape(shape), perm.reshape(shape[:-1]), rank.reshape(shape[:-2]))
+
+
+def _pivoted_factor(A, perm, rank):
+    """The factor ``L`` ``(B, n, n)`` of :func:`pivoted_cholesky` for the
+    permutation and rank of :func:`_pivot_search`, differentiable in ``A``."""
+    B, n, _ = A.shape
+    dtype, device = A.dtype, A.device
+    idx = torch.arange(n, device=device)
+    lanes = torch.arange(B, device=device)
+
+    Ap = torch.gather(A, -2, perm[:, :, None].expand(B, n, n))
+    Ap = torch.gather(Ap, -1, perm[:, None, :].expand(B, n, n))
+    lead = idx < rank[:, None]
+    block = lead[:, :, None] & lead[:, None, :]
+    eye = torch.eye(n, dtype=dtype, device=device)
+    Lm = _chol(torch.where(block, Ap, eye))  # L11 (+) I
+    # rows past the rank: A21 L11^-T; the leading rows are L11 itself
+    cols = torch.where(lead[:, None, :], Ap, 0.0)
+    L21 = _solve_lower(Lm, cols.transpose(-1, -2)).transpose(-1, -2)
+    L = torch.where(lead[:, :, None], torch.where(block, Lm, 0.0), L21)
+
+    last = torch.clamp_min(rank - 1, 0)
+    l_rr = torch.where(rank > 0, L[lanes, last, last], Ap[:, 0, 0])
+    rank_f = rank.to(dtype)[:, None]
+    synth = l_rr[:, None] * torch.exp(torch.lgamma(rank_f + 1.0) - torch.lgamma(idx.to(dtype) + 2.0))
+    diag = torch.where(idx >= rank[:, None], synth, torch.diagonal(L, dim1=-2, dim2=-1))
+    return torch.where(eye.bool(), torch.diag_embed(diag), L)
+
+
 def cholesky_factor(K, nugget, nugget_type, reuse_factor=True, sparse_ladder=False,
                     progressive_ok=True):
     """Factorize ``K`` by nugget type.
 
     :param K: ``(..., n, n)`` covariance without nugget.
     :param nugget: ``(...)`` nugget (ignored for ``"adaptive"``).
-    :param nugget_type: ``"adaptive"``, ``"fit"`` or ``"fixed"``;
-        ``"pivot"`` raises ``NotImplementedError``.
+    :param nugget_type: ``"adaptive"``, ``"pivot"``, ``"fit"`` or
+        ``"fixed"``.
     :param reuse_factor, sparse_ladder, progressive_ok: passed to
         :func:`jit_cholesky` for ``"adaptive"``.
-    :returns: ``(ChoFactor, nugget)`` with the realized nugget.
+    :returns: ``(factor, nugget)``: a ``ChoFactor`` (a
+        ``PivotedChoFactor`` for ``"pivot"``) and the realized nugget.
     """
     if nugget_type == "adaptive":
         return jit_cholesky(K, reuse_factor=reuse_factor, sparse_ladder=sparse_ladder,
                             progressive_ok=progressive_ok)
     if nugget_type == "pivot":
-        raise NotImplementedError(
-            "pivoted Cholesky (nugget='pivot') is not ported to mogp_tpu_torch yet"
-        )
+        return pivoted_cholesky(K), nugget
     if nugget_type in ("fit", "fixed"):
         eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
         nugget = torch.as_tensor(nugget, dtype=K.dtype, device=K.device)

@@ -54,7 +54,9 @@ class MarginalCore(NamedTuple):
 def marginal_core(Kinv, dm, resid, mean_inv_cov):
     """One stacked half-solve giving the marginalized-mean artifacts.
 
-    :param Kinv: covariance factor (``ChoFactor``), ``(..., n, n)``.
+    :param Kinv: covariance factor, ``(..., n, n)``: a ``ChoFactor``, or a
+        ``PivotedChoFactor`` whose permuted, rank-masked half-solve gives
+        ``W`` (``nugget="pivot"``).
     :param dm: design matrix ``H`` ``(..., n, M)``.
     :param resid: ``y - H b`` ``(..., n)``.
     :param mean_inv_cov: ``B^-1`` ``(..., M, M)``, zeros for weak priors.

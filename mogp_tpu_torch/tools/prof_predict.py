@@ -12,10 +12,11 @@ It prints, one labelled line each:
 1. ``predict``: three unprofiled predicts (wall seconds, points/s) after a
    warm-up, with the launches of the fused kernel and of K1 in each.
 2. ``stages``: one predict taken apart by the host clock, each stage ended
-   by a synchronize: the host's float64 output arrays, the queries and
-   their design matrix to the device, the device call
-   (``gp_predict_tiled`` or ``gp_predict``), and the results to the host,
-   widened to float64 there into the output arrays.
+   by a synchronize: the host's float64 output arrays, the lanes' stacking
+   and the queries and their design matrix to the device
+   (``MultiOutputGP._predict_groups``), the device call over the query
+   tiles, and the results to the host, widened to float64 there into the
+   output arrays.
 3. ``profile``: a ``torch.profiler`` table of one predict; its device time
    (the sum over device kernels and copies) and its busy share against the
    profiled wall time and against the mean unprofiled predict (the
@@ -35,8 +36,7 @@ sys.path.insert(0, ROOT)
 
 import mogp_tpu_torch  # noqa: E402
 from chip_smoke import N_DIM, N_OUTPUTS, N_QUERIES, make_data, make_thetas  # noqa: E402
-from mogp_tpu_torch.models import gp as tgp  # noqa: E402
-from mogp_tpu_torch.models.mogp import _store_rows  # noqa: E402
+from mogp_tpu_torch.models.mogp import _cat_tiles, _store_rows  # noqa: E402
 from mogp_tpu_torch.ops import kernel_matrix as km  # noqa: E402
 from mogp_tpu_torch.ops import predict_fused as pf  # noqa: E402
 
@@ -44,33 +44,22 @@ from mogp_tpu_torch.ops import predict_fused as pf  # noqa: E402
 def _stages(mgp, q):
     """One predict of every output as ``MultiOutputGP.predict`` runs it,
     timed stage by stage."""
-    ems = mgp.emulators
-    em0 = ems[0]
-    arts = tgp.cat_lanes([em._artifacts for em in ems])
-    data = tgp.cat_lanes([em._data for em in ems])
-    rows = list(range(len(ems)))
-    scale = np.array([em._t_std for em in ems])[:, None]
-    shift = np.array([em._t_mean for em in ems])[:, None]
-    tile = tgp._query_tile(q.shape[0], None, data, em0.kernel)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mean_out, unc_out = np.empty((len(ems), q.shape[0])), np.empty((len(ems), q.shape[0]))
+    shape = (mgp.n_emulators, q.shape[0])
+    mean_out, unc_out = np.empty(shape), np.empty(shape)
     t1 = time.perf_counter()
-    testing, dmtest = em0._tensor(q), em0._tensor(em0.get_design_matrix(q))
+    (rows, tiles, scale, shift), = mgp._predict_groups(q, list(range(mgp.n_emulators)))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    args = (arts, data, testing, dmtest, em0.kernel, em0.nugget_type)
-    if tile:
-        mu, var = tgp.gp_predict_tiled(*args, tile=tile)
-    else:
-        mu, var = tgp.gp_predict(*args)
+    mu, var = _cat_tiles(tiles)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    _store_rows(mean_out, rows, mu, scale, shift)
-    _store_rows(unc_out, rows, var, scale**2)
+    _store_rows(mean_out, rows, mu, scale[:, None], shift[:, None])
+    _store_rows(unc_out, rows, var, scale[:, None] ** 2)
     t4 = time.perf_counter()
-    return {"tile": tile, "outputs_alloc_s": t1 - t0, "to_device_s": t2 - t1,
-            "device_call_s": t3 - t2, "to_host_s": t4 - t3, "total_s": t4 - t0}
+    return {"outputs_alloc_s": t1 - t0, "to_device_s": t2 - t1, "device_call_s": t3 - t2,
+            "to_host_s": t4 - t3, "total_s": t4 - t0}
 
 
 def main():

@@ -1,4 +1,5 @@
-"""Utilities: checkpoints; timing, FLOP counts and profiling in ``utils.metrics``."""
+"""Utilities: checkpoints; ``k_fold_cross_validation`` and ``integer_bisect``
+in ``utils.misc``; timing, FLOP counts and profiling in ``utils.metrics``."""
 
 from .checkpoint import atomic_savez, load_gp, load_mogp, save_gp, save_mogp
 

@@ -97,8 +97,21 @@ def test_cholesky_factor(nugget_type):
 
 
 def test_pivot_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tchol.cholesky_factor(torch.eye(3, dtype=torch.float64)[None], 0.0, "pivot")
+    """``"pivot"`` once raised ``NotImplementedError`` here, and the test
+    keeps the name it had then, so that its history stays one line; it
+    now checks that ``cholesky_factor`` dispatches ``"pivot"`` to the
+    pivoted factor, per lane, as mogp_tpu's does
+    (tests/test_torch_pivot.py holds the factor itself)."""
+    rng = np.random.RandomState(8)
+    A = np.stack([_spd(rng, 6), np.ones((6, 6))])
+    F, nug = tchol.cholesky_factor(_t(A), _t([0.0, 0.0]), "pivot")
+    assert isinstance(F, tchol.PivotedChoFactor)
+    assert F.rank.tolist() == [6, 1]
+    for lane in range(2):
+        Fj, nj = jchol.cholesky_factor(jnp.asarray(A[lane]), 0.0, "pivot")
+        assert_allclose(float(F.logdet()[lane]), float(Fj.logdet()), rtol=1e-12)
+        assert F.P[lane].tolist()[:int(Fj.rank)] == np.asarray(Fj.P).tolist()[:int(Fj.rank)]
+        assert float(nug[lane]) == float(nj) == 0.0
 
 
 @pytest.mark.parametrize("M", [0, 2])

@@ -205,6 +205,9 @@ def test_unfit_and_bad_arguments_raise():
         gt.fit(np.zeros(gt.n_params + 1))
     with pytest.raises(ValueError):
         mogp_tpu_torch.GaussianProcess(x, y[0], kernel="NotAKernel", device="cpu")
+    # nugget="pivot" fits now (tests/test_torch_pivot.py); its nugget
+    # cannot be set, as in mogp_tpu
     gp = mogp_tpu_torch.GaussianProcess(x, y[0], nugget="pivot", device="cpu")
-    with pytest.raises(NotImplementedError):
-        gp.fit(np.zeros(gp.n_params))
+    gp.fit(np.zeros(gp.n_params))
+    with pytest.raises(ValueError):
+        gp.theta.nugget = 1e-3

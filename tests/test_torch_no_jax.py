@@ -41,6 +41,8 @@ def test_no_file_of_the_port_imports_jax():
     files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
     assert len(files) >= 10
     assert any(p.parent.name == "tools" for p in files) and files[-1].is_file()
+    assert {"uq", "compat.py", "meanfunction.py", "formula.py", "misc.py"} <= (
+        {p.parent.name for p in files} | {p.name for p in files})
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
