@@ -72,14 +72,46 @@ Phases (any failure raises, so the exit code is not 0):
    predicted on the unfused route (no fused launch), its log posterior
    within 1e-3 of float64 on the CPU.
 
-Around each of phases 3, 4, 5 and 6's sweep the kernels' launch counters
-are zeroed just before and read just after; every kernel of the path must
-have launched (the fused prediction in 3 and 6, K2 in 4, K1 and the
-routed blocked variant in 5).  The
+7. The inference workflow at full width (float32 unless it says
+   otherwise): 7a ``sample_GP_MCMC`` on ``bench.py``'s NUTS problem (n =
+   210, D = 14, ``nugget="fit"``, MAP as ``bench.py`` fits it), 64 chains,
+   200 warmup + 200 samples after a short warm-up run, printing min-ESS/s,
+   leapfrogs per transition and per second, lane utilization, host syncs
+   per transition, divergences, acceptance, R-hat and K2's launches; R-hat
+   < 1.1 and at most 1% divergent transitions; the idle share of another,
+   short run (seed 2, trees of at most 63 leapfrogs), read from its 3
+   sampling transitions after its warmup, with K2's count there equal to
+   the profiler's count of K2 kernels; the float32 potential and each
+   component of its gradient at the last sample of every chain against
+   float64 on the CPU (ten times ``mogp_tpu``'s own float32 gap,
+   ``scripts/inference_reference_gap.py``);
+   7d ``fit_GP_VI`` (400 steps) on the same GP, a finite mean and a rising
+   ELBO; 7e ``predict_MCMC`` of chains 0-1 thinned by 5 (80 lanes) at 4096
+   queries near the training inputs (``predict_queries``) through K2 and
+   the fused kernel, against float64 on the CPU within phase 3's limits; 7b ``sample_MOGP_MCMC`` of phase 4's MAP fit,
+   4 chains per output (256 lanes), 100 + 100, R-hat < 1.2 on at least 90%
+   of the outputs, and the idle share as in 7a; 7c the quadrature oracle of
+   ``tests/test_inference.py:164-217`` in float64 on the card (64 chains,
+   200 + 150), posterior means within 4 MCSE of the quadrature (computed
+   by the port on the CPU); 7f ``smc_history_match`` on phase 6's emulator
+   and observations, 65,536 particles, 10 stages, 5 MH steps, rank 1, the
+   final particles' I against float64 on the CPU (phase 6's limit) and the
+   NROY count, and a ``standardize=True`` copy's I against the host path of
+   ``HistoryMatching`` on 4096 particles.
+
+Around each of phases 3, 4, 5, 6's sweep and 7a, 7b, 7e and 7f the
+kernels' launch counters are zeroed just before and read just after;
+every kernel of the path must have launched (the fused prediction in 3,
+6, 7e and 7f, K2 in 4, 7a, 7b and 7e, K1 and the routed blocked variant
+in 5).  On the card the NUTS and VI potential is replayed from a CUDA
+graph; K2's wrapper counts the launches of each replay
+(``ops/cholesky_batched.py::replay``).  The
 blocked variants the route does not take are checked and timed in 2c and
 listed with the launches they made in 5 (none) and ``"routed": false``.
 The last three lines of standard output are a JSON object describing each
-kernel (K1, the fused prediction, K2, K3-K5), the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
+kernel (K1, the fused prediction, K2, K3-K5; K2's launches per leapfrog in
+7a and 7b, the fused kernel's per SMC stage in 7f), the ``nvidia-smi``
+line, and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits with a non-zero code and prints no result.
 """
@@ -232,6 +264,110 @@ def uq_coords(design_cls, n, seed=6):
 
     np.random.seed(seed)
     return design_cls(N_DIM).sample(n)
+
+
+# phase 7: the inference workflow at full width.  7a: NUTS on bench.py's
+# problem (bench.py:236-300; n = 210, D = 14, nugget="fit"), 64 chains,
+# 200 warmup and 200 samples, after a short warm-up run; 7b:
+# sample_MOGP_MCMC on phase 4's MAP fit, 4 chains per output (256 lanes),
+# 100 + 100; 7c: the quadrature oracle of tests/test_inference.py:164-217 in
+# float64 on the card; 7d: fit_GP_VI on 7a's GP; 7e: predict_MCMC of 7a's
+# chains 0-1 thinned by 5 (80 lanes) at 4096 queries near the training
+# inputs; 7f:
+# smc_history_match on phase 6's emulator and observations.
+NUTS_CHAINS, NUTS_WARMUP, NUTS_SAMPLES = 64, 200, 200
+MOGP_CHAINS, MOGP_WARMUP, MOGP_SAMPLES = 4, 100, 100
+ORACLE_CHAINS, ORACLE_WARMUP, ORACLE_SAMPLES = 64, 200, 150
+VI_STEPS, PRED_THIN, PRED_CHAINS = 400, 5, 2
+SMC_PARTICLES, SMC_STAGES, SMC_MCMC, SMC_STD_CHECK = 65536, 10, 5, 4096
+# 7a's gates: R-hat of every parameter, the share of divergent transitions
+NUTS_RHAT, NUTS_DIVERGENT = 1.1, 0.01
+# 7b's gate: R-hat < MOGP_RHAT on at least MOGP_RHAT_SHARE of the outputs
+MOGP_RHAT, MOGP_RHAT_SHARE = 1.2, 0.9
+# the idle share: the PROFILE_SAMPLES sampling transitions of a short run
+# (trees of at most 2**PROFILE_DEPTH - 1 leapfrogs), timed, then again under
+# torch.profiler for the device's busy time (_sampling_busy_share).  The
+# profiler records each of the ~400 kernels of a leapfrog, and its Python
+# post-processing of a 10 + 10 run took ~2 minutes on an H100 host
+PROFILE_WARMUP, PROFILE_SAMPLES, PROFILE_DEPTH = 10, 3, 6
+# the share of K2's launches in such a run that the profiler may miss
+# (its records once held 188 of 189 on an H100); a counter wrong by one
+# launch a replay would be off by as many launches as there are replays
+K2_PROFILER_LOSS = 20
+# 7a: the card's float32 potential and gradient at 64 recorded samples
+# against float64 on the CPU: ten times mogp_tpu's own float32-vs-float64
+# gap on a CPU at 64 posterior samples of the same problem
+# (scripts/inference_reference_gap.py).  The potential relative (gap
+# 7.65e-4).  The gradient per component, as the largest difference over
+# the component's root-mean-square over the samples: the 14 correlation
+# lengths at ten times the largest of their gaps (5.3e-7 to 1.4e-6), the
+# covariance and the nugget each at its own (7.53e-2, 3.7e-6).  The
+# covariance's slope is small beside the two ~n/2 terms that cancel in
+# it, so float32 leaves it mostly rounding.
+POTENTIAL_TOL = {"value_rel": 7.65e-3, "grad_rel": [1.4e-5] * N_DIM + [0.753, 3.71e-5]}
+# 7e: phase 3's limits (SLICE_TOL), within ten times mogp_tpu's own gap
+# at 64 of its posterior samples and predict_queries (the script
+# above: 1.32e-2 in the mean, 1.61e-2 in the variance)
+PREDICT_TOL = {"mean": min(SLICE_TOL["mean"], 0.132), "var": min(SLICE_TOL["unc"], 0.161)}
+
+
+def nuts_problem():
+    """bench.py's NUTS problem (bench.py:245-247): inputs U(0, 1) from
+    RandomState(7), targets sin(3 x0) + x1^2 + 0.1 sum(x)."""
+    import numpy as np
+
+    rng = np.random.RandomState(7)
+    inputs = rng.uniform(0.0, 1.0, size=(N_POINTS, N_DIM))
+    return inputs, np.sin(3 * inputs[:, 0]) + inputs[:, 1] ** 2 + 0.1 * inputs.sum(1)
+
+
+def predict_queries(inputs, samples, n_queries, seed=11):
+    """7e's queries: seeded training inputs, each moved by a normal step of
+    one posterior correlation length over sqrt(D) in every dimension (the
+    lengths from the samples' median raw values), so that the scaled
+    squared distance to the input moved is ~1 and K* is far from 0."""
+    import numpy as np
+
+    raw = np.median(np.reshape(samples, (-1, np.shape(samples)[-1])), axis=0)[:N_DIM]
+    rng = np.random.RandomState(seed)
+    step = rng.normal(size=(n_queries, N_DIM)) * np.exp(-raw / 2) / np.sqrt(N_DIM)
+    return inputs[rng.randint(len(inputs), size=n_queries)] + step
+
+
+def oracle_grid():
+    """The quadrature grid of tests/test_inference.py:190-193: 301 x 301
+    raw (correlation, covariance) points."""
+    import numpy as np
+
+    G1, G2 = np.meshgrid(np.linspace(-8.0, 12.0, 301), np.linspace(-10.0, 10.0, 301),
+                         indexing="ij")
+    return np.stack([G1.ravel(), G2.ravel()], axis=1)
+
+
+def quadrature_moments(pts, nlp):
+    """Posterior mean and variance of the grid ``pts`` weighted by
+    ``exp(-nlp)``, and the mass on the grid's edge."""
+    import numpy as np
+
+    nlp = np.where(np.isfinite(nlp), nlp, np.inf)
+    w = np.exp(-(nlp - nlp.min()))
+    w /= w.sum()
+    mean = (w[:, None] * pts).sum(0)
+    var = (w[:, None] * (pts - mean) ** 2).sum(0)
+    ww = w.reshape(301, 301)
+    return mean, var, ww[0].sum() + ww[-1].sum() + ww[:, 0].sum() + ww[:, -1].sum()
+
+
+def oracle_problem(pkg, priors_mod, **kw):
+    """The posterior of tests/test_inference.py:164-217: a noiseless 1-D GP
+    with a fixed nugget and LogNormal priors, two raw parameters."""
+    import numpy as np
+
+    rng = np.random.RandomState(42)
+    x = rng.uniform(0, 1, size=(20, 1))
+    priors = priors_mod.GPPriors(corr=[priors_mod.LogNormalPrior(0.5, 0.3)],
+                                 cov=priors_mod.LogNormalPrior(0.5, 1.0), nugget_type="fixed")
+    return pkg.GaussianProcess(x, np.sin(4 * x[:, 0]), nugget=1e-6, priors=priors, **kw)
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -1152,7 +1288,7 @@ def phase_fit(mogp_tpu_torch, km, kb, label):
                       "ok" if ok else "FAIL"))
     if not ok:
         raise AssertionError("the card's MAP fit is worse than the float64 reference")
-    return launches
+    return launches, mgp
 
 
 def _unpermuted(errors):
@@ -1349,6 +1485,378 @@ def phase_uq(mogp_tpu_torch, km, kb, pf, label):
     return fused
 
 
+def _sampling_busy_share(run):
+    """The idle share of the sampling segments of a short NUTS run
+    ``run()``, which is run twice: the wall from the first run, the busy
+    time from the second under ``torch.profiler`` (CUDA activity), which
+    slows the host's launches but not the card's kernels.  The warmup before
+    the segments, which also captures the potential's CUDA graph, is in
+    neither.  Under the profiler, K2's counter must rise by the number of
+    K2 kernels the profiler saw, replays of the graph included, or by at
+    most 1 / K2_PROFILER_LOSS more (its activity records can drop a
+    kernel).
+
+    :returns: ``{"wall", "busy", "idle_share", "k2_counted",
+        "k2_profiled"}`` (seconds, and launches of the profiled run).
+    """
+    import torch
+    from mogp_tpu_torch.models import inference as tinf
+    from mogp_tpu_torch.ops import cholesky_batched as kb
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    segment = tinf._nuts_sample_seg
+    total = {"wall": 0.0, "busy": 0.0, "k2_counted": 0, "k2_profiled": 0}
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = segment(*args, **kwargs)
+        torch.cuda.synchronize()
+        total["wall"] += time.perf_counter() - t0
+        return out
+
+    def profiled(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = kb.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = segment(*args, **kwargs)
+            torch.cuda.synchronize()
+        total["k2_counted"] += kb.launches - before
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total["busy"] += sum(e.self_device_time_total for e in events) / 1e6
+        total["k2_profiled"] += sum(e.count for e in events if "cholesky_batched_kernel" in e.key)
+        return out
+
+    try:
+        for wrapper in (timed, profiled):
+            tinf._nuts_sample_seg = wrapper
+            run()
+    finally:
+        tinf._nuts_sample_seg = segment
+    total["idle_share"] = 1.0 - total["busy"] / total["wall"]
+    lost = total["k2_counted"] - total["k2_profiled"]
+    if total["k2_counted"] <= 0 or not 0 <= lost <= total["k2_counted"] // K2_PROFILER_LOSS:
+        raise AssertionError("K2's counter rose by {} where the profiler saw {} launches".format(
+            total["k2_counted"], total["k2_profiled"]))
+    return total
+
+
+def _chain_figures(results, seconds, stats, k2):
+    """The figures 7a and 7b print, from ``MCMCResult``s of one timed run."""
+    import numpy as np
+
+    ess = min(float(r.ess.min()) for r in results)
+    return {
+        "seconds": seconds,
+        "min_ess_per_sec": ess / seconds,
+        "min_ess": ess,
+        "transitions_per_chain": stats["transitions"],
+        "leapfrogs_per_transition": stats["leapfrogs"] / max(stats["transitions"], 1),
+        "leapfrogs_per_sec": stats["leapfrogs"] / seconds,
+        "lane_leapfrogs_per_sec": stats["lane_leapfrogs"] / seconds,
+        "lane_utilization": stats["lane_utilization"],
+        "host_syncs_per_transition": stats["syncs"] / max(stats["transitions"], 1),
+        "divergent_share": float(np.mean([r.diverging.mean() for r in results])),
+        "mean_accept": float(np.mean([r.accept_prob.mean() for r in results])),
+        "max_rhat": float(max(r.rhat.max() for r in results)),
+        "k2_launches": k2,
+        "k2_launches_per_leapfrog": k2 / max(stats["leapfrogs"], 1),
+    }
+
+
+def phase_nuts(mogp_tpu_torch, km, kb, pf, label):
+    """7a, 7d and 7e (module doc, phase 7): NUTS, VI and predict_MCMC on
+    bench.py's NUTS problem; returns the figures for the kernel line."""
+    import numpy as np
+    import torch
+    from mogp_tpu_torch.models import inference as tinf
+    from mogp_tpu_torch.models.gp import take_lanes
+    from mogp_tpu_torch.ops import hmc
+
+    x, y = nuts_problem()
+    np.random.seed(2)
+    t0 = time.perf_counter()
+    gp = mogp_tpu_torch.fit_GP_MAP(
+        mogp_tpu_torch.GaussianProcess(x, y, nugget="fit", device="cuda"), n_tries=4, maxiter=50)
+    theta = gp.theta.get_data()
+    print("phase 7a: MAP fit (4 restarts, maxiter=50) {} s".format(time.perf_counter() - t0))
+    kw = dict(n_chains=NUTS_CHAINS, theta0=theta)
+    tinf.sample_GP_MCMC(gp, n_samples=4, n_warmup=4, seed=0, **kw)  # warm-up
+    torch.cuda.synchronize()
+    km.launches = kb.launches = pf.launches = 0
+    hmc.counters.reset()
+    t0 = time.perf_counter()
+    res = tinf.sample_GP_MCMC(gp, n_samples=NUTS_SAMPLES, n_warmup=NUTS_WARMUP, seed=1, **kw)
+    torch.cuda.synchronize()
+    fig = _chain_figures([res], time.perf_counter() - t0, hmc.counters.read(), kb.launches)
+    short = _sampling_busy_share(lambda: tinf.sample_GP_MCMC(
+        gp, n_samples=PROFILE_SAMPLES, n_warmup=PROFILE_WARMUP, seed=2, max_depth=PROFILE_DEPTH,
+        **kw))
+    print("phase 7a: sample_GP_MCMC {} chains x ({} + {}), n={}, D={}, nugget=fit, float32 on {}: "
+          "{}".format(NUTS_CHAINS, NUTS_WARMUP, NUTS_SAMPLES, N_POINTS, N_DIM, label,
+                      json.dumps(fig)))
+    print("phase 7a: a short run (seed 2, max_depth {}), its {} sampling transitions after {} of "
+          "warmup: {}".format(PROFILE_DEPTH, PROFILE_SAMPLES, PROFILE_WARMUP, json.dumps(short)))
+    if fig["k2_launches"] <= 0:
+        raise AssertionError("NUTS did not launch K2")
+    ok = (np.all(np.isfinite(res.samples)) and fig["max_rhat"] < NUTS_RHAT
+          and fig["divergent_share"] <= NUTS_DIVERGENT)
+    print("phase 7a: max R-hat {} (limit {}), divergent share {} (limit {}): {}".format(
+        fig["max_rhat"], NUTS_RHAT, fig["divergent_share"], NUTS_DIVERGENT,
+        "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("the card's NUTS chains did not mix or diverged")
+
+    # the card's float32 potential against float64 on the CPU at the last
+    # sample of every chain
+    pts = torch.as_tensor(res.samples[:, -1])
+    cpu = mogp_tpu_torch.GaussianProcess(x, y, nugget="fit", device="cpu")
+    (u32, g32), (u64, g64) = [
+        tinf.gp_potential(take_lanes(g._data, torch.zeros(len(pts), dtype=torch.int64,
+                                                          device=g._device)),
+                          g.kernel, g.nugget_type)(pts.to(g._device))
+        for g in (gp, cpu)]
+    u32, g32, u64, g64 = (t.cpu().numpy() for t in (u32, g32, u64, g64))
+    d_u = float(np.max(np.abs(u32 - u64) / np.abs(u64)))
+    d_g = np.max(np.abs(g32 - g64), axis=0) / np.sqrt(np.mean(g64**2, axis=0))
+    ok = d_u <= POTENTIAL_TOL["value_rel"] and bool(np.all(d_g <= POTENTIAL_TOL["grad_rel"]))
+    print("phase 7a: potential at {} recorded samples, float32 card vs float64 CPU: max rel d u "
+          "{} (limit {}); per gradient component (the nugget's last), the largest |d| over the "
+          "component's rms {} (limits {}): {}".format(
+              len(pts), d_u, POTENTIAL_TOL["value_rel"], d_g.tolist(),
+              POTENTIAL_TOL["grad_rel"], "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("the card's float32 potential disagrees with float64")
+
+    # 7d: VI on the same GP
+    tinf.fit_GP_VI(gp, n_steps=5, theta0=theta, seed=0)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vi = tinf.fit_GP_VI(gp, n_steps=VI_STEPS, theta0=theta, seed=1)
+    vi_s = time.perf_counter() - t0
+    rising = vi.elbo_trace[-50:].mean() > vi.elbo_trace[:50].mean()
+    ok = bool(np.all(np.isfinite(vi.mean)) and rising)
+    print("phase 7d: fit_GP_VI {} steps x 8 draws on {}: {} s = {} steps/s; ELBO mean of the "
+          "first 50 steps {}, of the last 50 {}: {}".format(
+              VI_STEPS, label, vi_s, VI_STEPS / vi_s, vi.elbo_trace[:50].mean(),
+              vi.elbo_trace[-50:].mean(), "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("VI did not give a finite mean and a rising ELBO")
+    fig["vi_steps_per_sec"] = VI_STEPS / vi_s
+
+    # 7e: the posterior predictive of chains 0-1, thinned, at training
+    # inputs moved by about one posterior correlation length
+    samples = res.samples[:PRED_CHAINS]
+    q = predict_queries(x, samples, N_CHECK)
+    km.launches = kb.launches = pf.launches = 0
+    t0 = time.perf_counter()
+    mu, var = tinf.predict_MCMC(gp, samples, q, thin=PRED_THIN)
+    pred_s = time.perf_counter() - t0
+    launches = (pf.launches, kb.launches, km.launches)
+    t0 = time.perf_counter()
+    mu64, var64 = tinf.predict_MCMC(cpu, samples, q, thin=PRED_THIN)
+    cpu_s = time.perf_counter() - t0
+    d_mean = float(np.max(np.abs(mu - mu64)))
+    d_var = float(np.max(np.abs(var - var64)))
+    n_lanes = len(samples.reshape(-1, samples.shape[-1])[::PRED_THIN])
+    # the queries see the data: the prior mean is 0 and the targets O(1)
+    seen = float(np.max(np.abs(mu64)))
+    ok = (launches[0] > 0 and launches[1] > 0 and d_mean <= PREDICT_TOL["mean"]
+          and d_var <= PREDICT_TOL["var"] and np.all(var > 0) and seen > 0.1)
+    print("phase 7e: predict_MCMC of {} samples (lanes) at {} queries on {}: {} s; launches "
+          "predict_fused {}, K2 {}, K1 {}; float64 CPU ({} s): max |mean| {} (above 0.1), "
+          "variance {} to {}; max |d mean| {} (limit {}), max |d var| {} (limit {}): {}".format(
+              n_lanes, N_CHECK, label, pred_s, *launches, cpu_s, seen, float(var64.min()),
+              float(var64.max()), d_mean, PREDICT_TOL["mean"], d_var, PREDICT_TOL["var"],
+              "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("predict_MCMC missed a kernel or disagrees with float64")
+    fig["predict_launches"] = {"predict_fused": launches[0], "k2": launches[1]}
+    return fig
+
+
+def phase_mogp_nuts(mogp_tpu_torch, kb, mgp, label):
+    """7b: NUTS posteriors of every output of phase 4's MAP fit."""
+    import numpy as np
+    import torch
+    from mogp_tpu_torch.models import inference as tinf
+    from mogp_tpu_torch.ops import hmc
+
+    torch.cuda.synchronize()
+    kb.launches = 0
+    hmc.counters.reset()
+    t0 = time.perf_counter()
+    results = tinf.sample_MOGP_MCMC(mgp, n_samples=MOGP_SAMPLES, n_warmup=MOGP_WARMUP,
+                                    n_chains=MOGP_CHAINS, seed=1)
+    torch.cuda.synchronize()
+    fig = _chain_figures(results, time.perf_counter() - t0, hmc.counters.read(), kb.launches)
+    short = _sampling_busy_share(lambda: tinf.sample_MOGP_MCMC(
+        mgp, n_samples=PROFILE_SAMPLES, n_warmup=PROFILE_WARMUP, n_chains=MOGP_CHAINS, seed=2,
+        max_depth=PROFILE_DEPTH))
+    share = float(np.mean([np.all(r.rhat < MOGP_RHAT) for r in results]))
+    finite = all(np.all(np.isfinite(r.samples)) for r in results)
+    ok = fig["k2_launches"] > 0 and finite and share >= MOGP_RHAT_SHARE
+    print("phase 7b: sample_MOGP_MCMC {} outputs x {} chains ({} lanes) x ({} + {}), n={}, D={}, "
+          "nugget=adaptive, float32 on {}: {}; a short run (seed 2, max_depth {}), its {} "
+          "sampling transitions after {} of warmup: {}; outputs with R-hat < {}: {} (limit {}), "
+          "finite {}: {}".format(
+              N_OUTPUTS, MOGP_CHAINS, N_OUTPUTS * MOGP_CHAINS, MOGP_WARMUP, MOGP_SAMPLES, N_POINTS,
+              N_DIM, label, json.dumps(fig), PROFILE_DEPTH, PROFILE_SAMPLES, PROFILE_WARMUP,
+              json.dumps(short), MOGP_RHAT, share, MOGP_RHAT_SHARE, finite,
+              "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("the multi-output NUTS run missed K2, diverged or did not mix")
+    return fig
+
+
+def phase_oracle(mogp_tpu_torch, label):
+    """7c: NUTS in float64 on the card against the quadrature oracle of
+    tests/test_inference.py:164-217, computed by the port on the CPU."""
+    import numpy as np
+    import torch
+    from mogp_tpu_torch.models import gp as tgp
+    from mogp_tpu_torch.models import inference as tinf
+    from mogp_tpu_torch.models import priors as tpri
+
+    t0 = time.perf_counter()
+    cpu = oracle_problem(mogp_tpu_torch, tpri, device="cpu")
+    pts = oracle_grid()
+    nlp = []
+    with torch.no_grad():
+        for c0 in range(0, len(pts), 8192):
+            chunk = torch.as_tensor(pts[c0:c0 + 8192])
+            data = tgp.take_lanes(cpu._data, torch.zeros(len(chunk), dtype=torch.int64))
+            nlp.append(tgp.gp_nlp(chunk, data, cpu.kernel, cpu.nugget_type,
+                                  sparse_ladder=tinf._POTENTIAL_LADDER).numpy())
+    mean_q, var_q, edge = quadrature_moments(pts, np.concatenate(nlp))
+    if edge >= 1e-8:
+        raise AssertionError("the quadrature grid does not contain the posterior")
+
+    grid_s = time.perf_counter() - t0
+    gp = oracle_problem(mogp_tpu_torch, tpri, device="cuda", dtype=torch.float64)
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    gp = mogp_tpu_torch.fit_GP_MAP(gp, n_tries=4, maxiter=100)
+    print("phase 7c: the quadrature on the CPU {} s; MAP fit on the card (float64, 4 restarts, "
+          "maxiter=100) {} s".format(grid_s, time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    res = tinf.sample_GP_MCMC(gp, n_samples=ORACLE_SAMPLES, n_warmup=ORACLE_WARMUP,
+                              n_chains=ORACLE_CHAINS, seed=3, theta0=gp.theta.get_data())
+    sec = time.perf_counter() - t0
+    s = res.samples.reshape(-1, gp.n_params)
+    mcse = np.sqrt(var_q / np.maximum(res.ess, 1.0))
+    d_mean = np.abs(s.mean(0) - mean_q)
+    ok = (np.all(res.rhat < 1.05) and np.all(d_mean < 4.0 * mcse + 1e-3)
+          and np.allclose(s.var(0), var_q, rtol=0.2, atol=0))
+    print("phase 7c: quadrature oracle, {} chains x ({} + {}) in float64 on {}: {} s; R-hat {}; "
+          "posterior mean {} vs quadrature {} (|d| {}, limit 4 MCSE + 1e-3 = {}); variance {} vs "
+          "{} (rtol 0.2): {}".format(
+              ORACLE_CHAINS, ORACLE_WARMUP, ORACLE_SAMPLES, label, sec, res.rhat.tolist(),
+              s.mean(0).tolist(), mean_q.tolist(), d_mean.tolist(), (4.0 * mcse + 1e-3).tolist(),
+              s.var(0).tolist(), var_q.tolist(), "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("the card's float64 NUTS misses the quadrature oracle")
+
+
+def phase_smc(mogp_tpu_torch, km, kb, pf, label):
+    """7f: smc_history_match on phase 6's emulator and observations;
+    returns its figures."""
+    import numpy as np
+    import torch
+    from mogp_tpu_torch.uq import history_matching as thm
+    from mogp_tpu_torch.uq import smc as tsmc
+
+    x, y = make_data(N_OUTPUTS)
+    thetas = make_thetas()
+    mgp = mogp_tpu_torch.MultiOutputGP(x, y, nugget="adaptive", device="cuda")
+    mgp.fit(thetas)
+    obs, _, _ = uq_problem()
+    bounds = np.array([[0.0, 1.0]] * N_DIM)
+    kw = dict(obs=obs, bounds=bounds, n_particles=SMC_PARTICLES, n_stages=SMC_STAGES,
+              n_mcmc=SMC_MCMC, rank=1)
+    mogp_tpu_torch.smc_history_match(mgp, **dict(kw, n_stages=1, n_mcmc=1), seed=0)  # warm-up
+    torch.cuda.synchronize()
+    km.launches = kb.launches = pf.launches = 0
+    t0 = time.perf_counter()
+    res = mogp_tpu_torch.smc_history_match(mgp, seed=1, **kw)
+    wall = time.perf_counter() - t0
+    fused, k1 = pf.launches, km.launches
+    fig = {"seconds": wall, "fused_launches": fused,
+           "fused_launches_per_stage": fused / SMC_STAGES}
+    print("phase 7f: smc_history_match {} particles x {} outputs, {} stages x {} MH steps, rank 1, "
+          "float32 on {}: {} s; predict_fused launches {} (kernel_matrix {}); thresholds {}; "
+          "acceptance {}; nroy_fraction {}".format(
+              SMC_PARTICLES, N_OUTPUTS, SMC_STAGES, SMC_MCMC, label, wall, fused, k1,
+              res.thresholds.tolist(), res.accept_rates.tolist(), res.nroy_fraction))
+    if fused <= 0 or res.particles.shape != (SMC_PARTICLES, N_DIM):
+        raise AssertionError("SMC did not launch predict_fused or lost particles")
+
+    # the final particles' I recomputed on the CPU in float64
+    ref = mogp_tpu_torch.MultiOutputGP(x, y, nugget="adaptive", device="cpu")
+    ref.fit(thetas)
+    I_fn = tsmc._make_implausibility_fn(ref, obs[0], obs[1], 0.0, True, rank=1)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        I64 = np.concatenate([I_fn(torch.as_tensor(res.particles[c0:c0 + 8192])).numpy()
+                              for c0 in range(0, SMC_PARTICLES, 8192)])
+    d_I = np.abs(res.implausibility - I64) / I64
+    near = int(np.sum(np.abs(I64 - 3.0) <= UQ_TOL["I_rel"] * 3.0))
+    d_nroy = abs(int(np.sum(res.implausibility <= 3.0)) - int(np.sum(I64 <= 3.0)))
+    ok = float(d_I.max()) <= UQ_TOL["I_rel"] and d_nroy <= near
+    print("phase 7f: the final particles' I against float64 on the CPU ({} s): max rel d I {} "
+          "(limit {}); NROY count card {} vs CPU {} (particles within the limit of the "
+          "threshold: {}): {}".format(
+              time.perf_counter() - t0, float(d_I.max()), UQ_TOL["I_rel"],
+              int(np.sum(res.implausibility <= 3.0)), int(np.sum(I64 <= 3.0)), near,
+              "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("SMC's implausibility disagrees with float64")
+
+    # a standardized copy: SMC's I (observations mapped into the emulators'
+    # units) against HistoryMatching's host path (predictions mapped back)
+    std = mogp_tpu_torch.MultiOutputGP(x, y, nugget="adaptive", standardize=True, device="cuda")
+    std.fit(thetas)
+    pts = res.particles[:SMC_STD_CHECK]
+    I_std = tsmc._make_implausibility_fn(std, obs[0], obs[1], 0.0, True, rank=1)(
+        std.emulators[0]._tensor(pts)).cpu().numpy()
+    saved = thm._DEVICE_SWEEP_MIN_COORDS
+    thm._DEVICE_SWEEP_MIN_COORDS = SMC_STD_CHECK + 1  # the host path
+    try:
+        I_host = mogp_tpu_torch.HistoryMatching(gp=std, obs=obs, coords=pts).get_implausibility(
+            0.0, 1)
+    finally:
+        thm._DEVICE_SWEEP_MIN_COORDS = saved
+    d_std = float(np.max(np.abs(I_std - I_host) / I_host))
+    print("phase 7f: standardize=True, {} particles, SMC's implausibility against the host path "
+          "on the card: max rel d I {} (limit {}): {}".format(
+              SMC_STD_CHECK, d_std, SWEEP_HOST_RTOL, "ok" if d_std <= SWEEP_HOST_RTOL else "FAIL"))
+    if not d_std <= SWEEP_HOST_RTOL:
+        raise AssertionError("SMC's implausibility of standardized emulators disagrees")
+    return fig
+
+
+def phase_inference(mogp_tpu_torch, km, kb, pf, mgp, label):
+    """Phase 7 (module doc): 7a-7f; returns K2's launches per leapfrog (7a)
+    and the fused kernel's per SMC stage (7f)."""
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(mogp_tpu_torch, *args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    nuts = timed("7a 7d 7e", phase_nuts, km, kb, pf, label)
+    mogp = timed("7b", phase_mogp_nuts, kb, mgp, label)
+    timed("7c", phase_oracle, label)
+    smc = timed("7f", phase_smc, km, kb, pf, label)
+    print("phase 7: {} s; by part {}".format(time.perf_counter() - t_phase, json.dumps(seconds)))
+    return {"7a": nuts["k2_launches_per_leapfrog"], "7b": mogp["k2_launches_per_leapfrog"]}, \
+        smc["fused_launches_per_stage"]
+
+
 def main():
     import torch
 
@@ -1396,13 +1904,15 @@ def main():
     chol_record = phase_cholesky(kb)
     blocked_records = phase_blocked(kbl)
     fused_record["launches"] = phase_slice(mogp_tpu_torch, km, kb, pf, smi)
-    chol_record["launches"] = phase_fit(mogp_tpu_torch, km, kb, smi)
+    chol_record["launches"], mgp = phase_fit(mogp_tpu_torch, km, kb, smi)
     route, blocked_launches, record["launches"] = phase_large_n(
         mogp_tpu_torch, km, kb, kbl, pf, smi)
     for rec, v in zip(blocked_records, kbl.VARIANTS):
         rec["launches"] = blocked_launches[v]
         rec["routed"] = v == route
     phase_uq(mogp_tpu_torch, km, kb, pf, smi)
+    chol_record["launches_per_leapfrog"], fused_record["launches_per_smc_stage"] = \
+        phase_inference(mogp_tpu_torch, km, kb, pf, mgp, smi)
 
     print(json.dumps({"kernels": [record, fused_record, chol_record, *blocked_records]}))
     print(smi)

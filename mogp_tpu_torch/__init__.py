@@ -15,8 +15,11 @@ L-BFGS over outputs x restarts, with the race schedule), ``.npz``
 checkpoints, ``MeanFunction``, and the UQ workflow's one-shot designs
 (``MonteCarloDesign``, ``LatinHypercubeDesign``, ``MaxiMinLHC``), history
 matching (``HistoryMatching``, whose large sweeps run on the card through
-the fused prediction kernel) and ``validation``.  Sequential design,
-gKDR, MCMC / VI / SMC and the multi-device layer come later.
+the fused prediction kernel), ``validation``, and inference over the
+hyperparameters: batched NUTS (``sample_GP_MCMC``, ``sample_MOGP_MCMC``),
+``fit_GP_VI``, ``predict_MCMC`` and SMC history matching
+(``smc_history_match``), with their checkpoints.  Sequential design,
+gKDR and the multi-device layer come later.
 """
 
 __version__ = "0.1.0"
@@ -27,6 +30,7 @@ from .ops import kernels as Kernel
 
 from .models.fitting import fit_GP_MAP
 from .models.gp import GaussianProcess, PredictResult
+from .models.inference import fit_GP_VI, predict_MCMC, sample_GP_MCMC, sample_MOGP_MCMC
 from .models.meanfunction import MeanFunction
 from .models.mogp import MultiOutputGP
 from .models.params import GPParams
@@ -47,6 +51,7 @@ from .uq.experimental_design import (
     MonteCarloDesign,
 )
 from .uq.history_matching import HistoryMatching
+from .uq.smc import smc_history_match
 from .utils.checkpoint import load_gp, load_mogp
 
 __all__ = [
@@ -63,6 +68,11 @@ __all__ = [
     "PredictResult",
     "MultiOutputGP",
     "fit_GP_MAP",
+    "sample_GP_MCMC",
+    "sample_MOGP_MCMC",
+    "predict_MCMC",
+    "fit_GP_VI",
+    "smc_history_match",
     "GPParams",
     "GPPriors",
     "GammaPrior",

@@ -14,7 +14,7 @@ from .gp import (
     make_gp_data,
 )
 from .fitting import fit_GP_MAP
-from .meanfun import design_matrix, parse_formula
+from .meanfun import design_matrix, design_matrix_fn, parse_formula
 from .meanfunction import MeanFunction
 from .mogp import MultiOutputGP
 from .params import GPParams
@@ -44,6 +44,7 @@ __all__ = [
     "make_gp_data",
     "fit_GP_MAP",
     "design_matrix",
+    "design_matrix_fn",
     "parse_formula",
     "MeanFunction",
     "MultiOutputGP",

@@ -29,6 +29,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..config import refuse_mesh
 from ..ops.lbfgs import lbfgs_minimize
 from .gp import GaussianProcess, GaussianProcessBase, cat_lanes, gp_nlp, take_lanes
 from .mogp import MultiOutputGP
@@ -308,7 +309,9 @@ def fit_GP_MAP(*args, n_tries=15, theta0=None, method="L-BFGS-B", skip_failures=
     A ``MultiOutputGP`` with ``refit=False`` fits only the outputs not fit
     yet.  Outputs that cannot be fit are reported (``skip_failures``) or
     raise ``RuntimeError``; a single GP that cannot be fit raises.
+    ``mesh`` other than ``None`` raises ``NotImplementedError`` (ROADMAP A9).
     """
+    refuse_mesh(kwargs.pop("mesh", None), "fit_GP_MAP")
     if len(args) == 1:
         gp = args[0]
         if isinstance(gp, MultiOutputGP):

@@ -1,7 +1,8 @@
 """Mean functions as design matrices from R-style formulas.
 
-Port of the host (numpy) part of ``mogp_tpu/models/meanfun.py``; the
-traced ``design_matrix_fn`` comes with the history-matching port.
+Port of ``mogp_tpu/models/meanfun.py``: :func:`design_matrix` on the host
+(numpy), and :func:`design_matrix_fn`, the same columns from a query
+tensor on its device, for the SMC sampler whose particles live there.
 
 The reference builds its mean design matrix with patsy
 (``GaussianProcess.py:485-515``) and keeps a separate symbolic
@@ -52,8 +53,9 @@ on the host at model-construction time.
 import re
 
 import numpy as np
+import torch
 
-__all__ = ["design_matrix", "parse_formula", "n_mean_params"]
+__all__ = ["design_matrix", "design_matrix_fn", "parse_formula", "n_mean_params"]
 
 # a factor that is entirely one C(...) call (categorical)
 _C_FACTOR_RE = re.compile(r"^\s*C\s*\((.*)\)\s*$", re.S)
@@ -169,10 +171,10 @@ def _eval_expr(expr, namespace):
         )
 
 
-def _eval_factor(factor, x_data):
-    """Evaluate one numeric factor expression to a column vector."""
-    val = _eval_expr(factor, _term_namespace(x_data, np))
-    return np.asarray(val, dtype=np.float64)
+def _eval_factor(factor, x_data, xp):
+    """Evaluate one numeric factor expression over ``x_data`` ``(D, n)``
+    with array module ``xp``."""
+    return _eval_expr(factor, _term_namespace(x_data, xp))
 
 
 def _parse_categorical(factor):
@@ -199,47 +201,6 @@ def _parse_categorical(factor):
     return expr, levels
 
 
-def _categorical_block(factor, x_data, n, state, reduced):
-    """Indicator columns for a ``C(...)`` factor (treatment coding when
-    ``reduced``)."""
-    expr, explicit = _parse_categorical(factor)
-    col = np.broadcast_to(_eval_factor(expr, x_data), (n,))
-    key = "C({})".format(expr.strip())
-    if state is not None and key in state:
-        levels = np.asarray(state[key])
-    elif explicit is not None:
-        levels = np.asarray(explicit, dtype=np.float64)
-    else:
-        levels = np.unique(col)
-    if state is not None:
-        state.setdefault(key, levels)
-    # EXACT level matching (patsy semantics): levels are the literal
-    # values seen at binding time; tolerance matching would merge
-    # adjacent large-magnitude levels into overlapping indicators
-    matches = col[:, None] == levels[None, :]
-    unseen = ~matches.any(axis=1)
-    if np.any(unseen):
-        raise ValueError(
-            "categorical factor '{}' saw value(s) {} outside its bound "
-            "levels {} (levels are fixed at model construction, as with "
-            "patsy)".format(
-                factor, np.unique(col[unseen])[:5].tolist(), levels.tolist()
-            )
-        )
-    ind = matches.astype(np.float64)
-    if reduced and ind.shape[1] > 1:
-        ind = ind[:, 1:]  # drop first level: treatment coding
-    return ind
-
-
-def _eval_factor_block(factor, x_data, n, state, reduced):
-    """Evaluate one factor to an ``(n, k)`` column block (k=1 numeric)."""
-    if _C_FACTOR_RE.match(factor):
-        return _categorical_block(factor, x_data, n, state, reduced)
-    val = np.broadcast_to(_eval_factor(factor, x_data), (n,))
-    return val.astype(np.float64)[:, None]
-
-
 def _term_key(term):
     """A term's identity: the set of its ``:``-factors."""
     return frozenset(f for _, f in _split_top_level(term, ":"))
@@ -258,15 +219,78 @@ def _reduced_factors(intercept, terms):
     return flags
 
 
-def _eval_term(term, x_data, n, state, reduced):
-    block = None
-    for (_, factor), red in zip(_split_top_level(term, ":"), reduced):
-        b = _eval_factor_block(factor, x_data, n, state, red)
-        if block is None:
-            block = b
-        else:  # column-wise product expansion (Khatri-Rao over columns)
-            block = (block[:, :, None] * b[:, None, :]).reshape(n, -1)
-    return block
+def _assemble(mean, x, state, xp):
+    """The columns of the formula ``mean`` at inputs ``x`` ``(n, D)``, the
+    one assembly of both paths.  ``xp`` is ``numpy`` (the host path: float64
+    columns, and a ``C(...)`` factor binds its levels from the first data
+    it sees) or ``torch`` (columns on ``x``'s device and in its type, and
+    the levels must be bound already)."""
+    n = x.shape[0]
+    host = xp is np
+
+    def as_col(value, dtype):
+        if host:
+            return np.broadcast_to(np.asarray(value, dtype=np.float64), (n,))
+        return torch.broadcast_to(torch.as_tensor(value, dtype=dtype, device=x.device), (n,))
+
+    def categorical(factor, reduced):
+        """Indicator columns (treatment coding when ``reduced``)."""
+        expr, explicit = _parse_categorical(factor)
+        # evaluated in float64 on both paths, so that a float32 query of a
+        # level exact in float32 matches it without a tolerance
+        x64 = np.asarray(x, dtype=np.float64) if host else x.to(torch.float64)
+        col = as_col(_eval_factor(expr, x64.T, xp), torch.float64)
+        key = "C({})".format(expr.strip())
+        if state is not None and key in state:
+            levels = np.asarray(state[key], dtype=np.float64)
+        elif explicit is not None:
+            levels = np.asarray(explicit, dtype=np.float64)
+        elif host:
+            levels = np.unique(col)
+        else:
+            raise ValueError(
+                "categorical factor '{}' needs bound levels on the device: pass the "
+                "model's mean state (gp._mean_state) or write explicit "
+                "C(..., levels=[...])".format(factor)
+            )
+        if host and state is not None:
+            state.setdefault(key, levels)
+        lv = levels if host else torch.as_tensor(levels, device=x.device)
+        # EXACT level matching (patsy semantics): levels are the literal
+        # values seen at binding time; tolerance matching would merge
+        # adjacent large-magnitude levels into overlapping indicators
+        matches = col[:, None] == lv[None, :]
+        unseen = ~matches.any(1)
+        if bool(unseen.any()):  # on the device, one read of a flag
+            raise ValueError(
+                "categorical factor '{}' saw value(s) {} outside its bound "
+                "levels {} (levels are fixed at model construction, as with "
+                "patsy)".format(
+                    factor, xp.unique(col[unseen])[:5].tolist(), levels.tolist()
+                )
+            )
+        ind = matches.astype(np.float64) if host else matches.to(x.dtype)
+        if reduced and ind.shape[1] > 1:
+            ind = ind[:, 1:]  # drop first level: treatment coding
+        return ind
+
+    intercept, terms = parse_formula(mean)
+    blocks = [as_col(1.0, x.dtype)[:, None]] if intercept else []
+    for term, reduced in zip(terms, _reduced_factors(intercept, terms)):
+        block = None
+        for (_, factor), red in zip(_split_top_level(term, ":"), reduced):
+            if _C_FACTOR_RE.match(factor):
+                b = categorical(factor, red)
+            else:
+                b = as_col(_eval_factor(factor, x.T, xp), x.dtype)[:, None]
+            if block is None:
+                block = b
+            else:  # column-wise product expansion (Khatri-Rao over columns)
+                block = (block[:, :, None] * b[:, None, :]).reshape(n, -1)
+        blocks.append(block)
+    if not blocks:
+        return np.zeros((n, 0)) if host else x.new_zeros((n, 0))
+    return np.concatenate(blocks, axis=1) if host else torch.cat(blocks, dim=1)
 
 
 def design_matrix(mean, inputs, state=None):
@@ -298,16 +322,7 @@ def design_matrix(mean, inputs, state=None):
             raise ValueError("Provided design matrix is of the wrong shape")
         return dm
 
-    intercept, terms = parse_formula(mean)
-    x_data = inputs.T  # patsy convention: data={"x": inputs.T}
-    blocks = []
-    if intercept:
-        blocks.append(np.ones((n, 1)))
-    for term, reduced in zip(terms, _reduced_factors(intercept, terms)):
-        blocks.append(_eval_term(term, x_data, n, state, reduced))
-    if not blocks:
-        return np.zeros((n, 0))
-    dm = np.concatenate(blocks, axis=1)
+    dm = _assemble(mean, inputs, state, np)
     if dm.shape[0] != n:
         raise ValueError("Provided design matrix is of the wrong shape")
     return dm
@@ -360,3 +375,31 @@ def n_mean_params(mean, D, state=None):
     probe = np.zeros((2, D))
     probe[1] = 1.0
     return design_matrix(mean, probe, state=state).shape[1]
+
+
+def design_matrix_fn(mean, state=None):
+    """``x (m, D) tensor -> (m, M) tensor`` on ``x``'s device and in its
+    type: the columns of :func:`design_matrix` (``mogp_tpu``'s
+    ``design_matrix_fn``, ``meanfun.py:348-...``).
+
+    The columns come from the assembly of the host path, evaluated with
+    torch on the tensor.  A ``C(...)`` factor needs its levels bound: the
+    model's ``state`` dict (``gp._mean_state``) or explicit
+    ``levels=[...]``.  Its expression is evaluated in float64 and matched
+    to the levels exactly, as on the host, and a query value that matches
+    no level raises ``ValueError``; ``mogp_tpu``'s traced path gives such
+    a row zero indicators.  The check reads one flag from the device.  A
+    callable mean is applied on the host.
+    """
+    if mean is None or mean == "0" or mean == "-1":
+        return lambda x: x.new_zeros((x.shape[0], 0))
+    if mean == "1" or mean == "-0":
+        return lambda x: x.new_ones((x.shape[0], 1))
+    if callable(mean):
+        return lambda x: torch.as_tensor(
+            design_matrix(mean, x.detach().cpu().numpy()), dtype=x.dtype, device=x.device)
+    if not isinstance(mean, str):
+        raise ValueError(
+            "design matrices on the device take a formula string, callable, or None"
+        )
+    return lambda x: _assemble(mean, x, state, torch)

@@ -30,6 +30,7 @@ from .gp import (
     gp_predict,
     take_lanes,
 )
+from .meanfun import design_matrix_fn
 from .priors import GPPriors
 
 __all__ = ["MultiOutputGP", "MultiOutputGPBase"]
@@ -301,9 +302,11 @@ class MultiOutputGP(MultiOutputGPBase):
     def _predict_groups(self, testing, indices, unc=True, include_nugget=True, full_cov=False,
                         max_batch_size=None):
         """The one assembly of a prediction of the fitted emulators
-        ``indices`` at ``testing`` (2D float64), for :meth:`predict` and
-        ``HistoryMatching``'s device sweep.  Per signature group it yields
-        ``(rows, tiles, scale, shift)``:
+        ``indices`` at ``testing`` (2D float64 numpy, or a tensor on the
+        emulators' device, whose design matrix is then built there by
+        ``design_matrix_fn``), for :meth:`predict`, ``HistoryMatching``'s
+        device sweep and SMC's implausibility.  Per signature group it
+        yields ``(rows, tiles, scale, shift)``:
 
         * ``rows``: the group's emulator indices;
         * ``tiles``: ``(mu, var)`` on the group's device over consecutive
@@ -323,10 +326,15 @@ class MultiOutputGP(MultiOutputGPBase):
             data = cat_lanes([em._data for em in ems])
             tile = 0 if full_cov else _query_tile(testing.shape[0], max_batch_size, data,
                                                   em0.kernel, em0.nugget_type)
+            if isinstance(testing, torch.Tensor):
+                x = testing.to(em0._device, em0._dtype)
+                dm = design_matrix_fn(em0._mean, em0._mean_state)(x)
+            else:
+                x, dm = em0._tensor(testing), em0._tensor(em0.get_design_matrix(testing))
             tiles = _group_tiles(
-                cat_lanes([em._artifacts for em in ems]), data, em0._tensor(testing),
-                em0._tensor(em0.get_design_matrix(testing)), em0.kernel, em0.nugget_type, tile,
-                unc=bool(unc), include_nugget=bool(include_nugget), full_cov=bool(full_cov),
+                cat_lanes([em._artifacts for em in ems]), data, x, dm, em0.kernel,
+                em0.nugget_type, tile, unc=bool(unc), include_nugget=bool(include_nugget),
+                full_cov=bool(full_cov),
             )
             yield (rows, tiles, np.array([em._t_std for em in ems]),
                    np.array([em._t_mean for em in ems]))

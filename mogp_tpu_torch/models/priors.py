@@ -14,8 +14,9 @@ Port of ``mogp_tpu/models/priors.py``:
 
 Restart starts of the MAP fit come from the host samplers (``sample`` /
 ``sample_n``, numpy's global RNG), so a seeded fit draws the same starts
-as ``mogp_tpu``.  Drawing them on the device (``dist_sample_raw`` /
-``GPPriors.sample_raw``) is not ported yet.
+as ``mogp_tpu``.  :func:`dist_sample_raw` / ``GPPriors.sample_raw`` draw
+on the device from a given ``torch.Generator``: the starts of NUTS chains
+that have no ``theta0`` (``models/inference.py``).
 """
 
 import math
@@ -37,6 +38,7 @@ __all__ = [
     "MeanPriors",
     "GPPriors",
     "dist_logp",
+    "dist_sample_raw",
     "max_spacing",
     "min_spacing",
 ]
@@ -104,6 +106,35 @@ def dist_logp(code, a, b, x):
             pick, fn(torch.where(pick, x, 1.0), torch.where(pick, a, 1.0),
                      torch.where(pick, b, 1.0)), out)
     return out
+
+
+def dist_sample_raw(code, a, b, transform_code, generator):
+    """One draw per slot of coded distributions, in raw parameter space
+    (``mogp_tpu/models/priors.py:104-130``): tensors of one shape on the
+    generator's device, floating ``a`` / ``b``.
+
+    Weak priors draw the raw value uniformly on [-2.5, 2.5]
+    (``Priors.py:668``); the others draw the transformed value (Normal:
+    ``a + b z``; LogNormal: ``b exp(a z)``; Gamma: shape ``a``, scale
+    ``b``; InvGamma: ``b / Gamma(a, 1)``) and invert the slot's transform.
+    Every family is drawn for every slot and ``torch.where`` picks the
+    coded one, as ``dist_logp`` does.
+    """
+    z = torch.randn(a.shape, generator=generator, dtype=a.dtype, device=a.device)
+    g = torch._standard_gamma(torch.clamp_min(a, 1e-12), generator=generator)
+    u = torch.rand(a.shape, generator=generator, dtype=a.dtype, device=a.device)
+    x = torch.ones_like(a)
+    for c, value in (
+        (DIST_NORMAL, a + b * z),
+        (DIST_LOGNORMAL, torch.exp(a * z) * b),
+        (DIST_GAMMA, g * b),
+        (DIST_INVGAMMA, b / torch.clamp_min(g, 1e-30)),
+    ):
+        x = torch.where(code == c, value, x)
+    x = torch.clamp_min(x, 1e-300)
+    raw = torch.where(transform_code == TRANSFORM_CORR, CorrTransform.inv_transform(x),
+                      CovTransform.inv_transform(x))
+    return torch.where(code == DIST_WEAK, 5.0 * (u - 0.5), raw)
 
 
 def _scalar(v):
@@ -716,6 +747,19 @@ class GPPriors:
                 vals,
             )
         )
+
+    def sample_raw(self, generator, n=None):
+        """float64 raw-parameter draws on the generator's device
+        (``mogp_tpu/models/priors.py:730-744``): ``(P,)``, or ``(n, P)``
+        when ``n`` is given (see :func:`dist_sample_raw`)."""
+        codes, a, b, tcodes = self.packed()
+        shape = (len(codes),) if n is None else (int(n), len(codes))
+
+        def t(x, dt):
+            return torch.as_tensor(x, dtype=dt, device=generator.device).expand(shape)
+
+        return dist_sample_raw(t(codes, torch.int64), t(a, torch.float64),
+                               t(b, torch.float64), t(tcodes, torch.int64), generator)
 
     # -- reference API parity ----------------------------------------------
 

@@ -237,7 +237,9 @@ def jitter_ladder(A, maxtries=5, sparse_ladder=False):
     dtype, device = A.dtype, A.device
     mean_diag = torch.diagonal(A, dim1=-2, dim2=-1).mean(dim=-1)[..., None]
     if sparse_ladder == "single":
-        return mean_diag * torch.tensor([1e-6], dtype=dtype, device=device)
+        # a Python scalar: no host-to-device copy, so the potential that
+        # NUTS and VI evaluate can be captured in a CUDA graph
+        return mean_diag * 1e-6
     if sparse_ladder:
         return mean_diag * torch.tensor([0.0, 1e-6, 1e-2], dtype=dtype, device=device)
     exponents = torch.pow(
@@ -278,7 +280,6 @@ def jit_cholesky(A, maxtries=5, reuse_factor=True, sparse_ladder=False,
     dtype, device = A.dtype, A.device
     eye = torch.eye(n, dtype=dtype, device=device)
     jitters = jitter_ladder(A_sg, maxtries, sparse_ladder)
-    nan = torch.tensor(torch.nan, dtype=dtype, device=device)
 
     if progressive_ok and sparse_ladder is False and n >= PROGRESSIVE_LADDER_MIN_N:
         L_sel = torch.full_like(A_sg, torch.nan)
@@ -297,10 +298,10 @@ def jit_cholesky(A, maxtries=5, reuse_factor=True, sparse_ladder=False,
         ok = _finite(Ls)
         idx = torch.argmax(ok.to(torch.int8), dim=-1)  # first finite candidate
         any_ok = ok.any(dim=-1)
-        jitter = torch.where(any_ok, torch.gather(jitters, -1, idx[..., None])[..., 0], nan)
+        jitter = torch.where(any_ok, torch.gather(jitters, -1, idx[..., None])[..., 0], torch.nan)
         gather_idx = idx[..., None, None, None].expand(*idx.shape, 1, n, n)
         L_sel = torch.gather(Ls, -3, gather_idx)[..., 0, :, :]
-        L_sel = torch.where(any_ok[..., None, None], L_sel, nan)
+        L_sel = torch.where(any_ok[..., None, None], L_sel, torch.nan)
 
     A_jit = A + jitter[..., None, None] * eye
     L = _chol_of_sum(A_jit, L_sel) if reuse_factor else _chol(A_jit)

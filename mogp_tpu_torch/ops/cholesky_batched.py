@@ -8,7 +8,9 @@ fit: every objective evaluation factors (lanes x ladder rungs) matrices of
 the training size, and the refit and the mean algebra go through it too.
 
 * On a CUDA tensor it launches ``csrc/cholesky_batched.cu`` (built at first
-  use by ``ops/_build.py``) and adds one to :data:`launches`.  It does not
+  use by ``ops/_build.py``) and adds one to :data:`launches`; under CUDA
+  graph capture it adds one to :data:`recorded` instead, and
+  :func:`replay` counts the launches of each replay.  It does not
   catch build or launch errors and never falls back to the plain version.
 * On a CPU tensor it calls :func:`cholesky_batched_plain`, which is what
   the CPU tests run.
@@ -35,10 +37,15 @@ __all__ = [
     "BLOCKED_VARIANT",
     "MAX_SHARED_BYTES",
     "launches",
+    "recorded",
+    "replay",
 ]
 
 # launches of the CUDA kernel in this process; callers may reset it
 launches = 0
+# calls recorded into CUDA graphs in this process: each launches K2 when
+# its graph replays, and :func:`replay` counts those launches
+recorded = 0
 
 # dynamic shared memory one block may opt into on Hopper (227 KB): the
 # largest packed triangle the kernel's shared-memory path holds
@@ -118,10 +125,23 @@ def cholesky_batched(A):
         err = lib.mogp_cholesky_batched(
             A.data_ptr(), out.data_ptr(), B, n, int(A.dtype == torch.float64), stream,
         )
+        capturing = torch.cuda.is_current_stream_capturing()
     if err:
         raise RuntimeError(
             "cholesky_batched launch failed: {}".format(lib.mogp_cuda_error_string(err).decode())
         )
-    global launches
-    launches += 1
+    global launches, recorded
+    if capturing:
+        recorded += 1
+    else:
+        launches += 1
     return out
+
+
+def replay(graph, n_recorded):
+    """Replay the CUDA graph ``graph``, into which :func:`cholesky_batched`
+    was recorded ``n_recorded`` times (the rise of :data:`recorded` over its
+    capture), and count those launches."""
+    global launches
+    graph.replay()
+    launches += n_recorded

@@ -9,7 +9,8 @@ output lane:
 
 The scaled squared distance is computed in matmul form
 ``|z1|^2 + |z2|^2 - 2 z1 z2^T`` with ``z = x * exp(theta/2)``, clamped at
-zero, as in the JAX package.  Matmuls run in full float32 or float64:
+zero, as in the JAX package; a training covariance's (``K(x, x)``) is
+corrected to an exact zero diagonal (:func:`squared_distance`).  Matmuls run in full float32 or float64:
 ``mogp_tpu_torch.config`` switches TF32 off when the package is imported.
 
 ``kernel_deriv`` and ``kernel_hessian`` come with the MAP-fit port.
@@ -57,6 +58,16 @@ _BASE_FNS = {"sqexp": sqexp, "mat52": mat52}
 def squared_distance(x1, x2, exp_theta):
     """All-pairs scaled squared distance in matmul form, clamped at zero.
 
+    When ``x2 is x1`` (a training covariance), an entry no larger than its
+    row's or its column's diagonal entry, which is 0 in exact arithmetic,
+    is set to 0: the diagonal, and the distance of two equal inputs (whose
+    entries equal their diagonal's).  The matmul form cancels ``|z_i|^2 +
+    |z_j|^2`` against ``2 z_i . z_j``, with an error of a few ulps of
+    ``|z|^2``: at correlation lengths of ~1e-2 in unit inputs (``|z|^2`` ~
+    1e5) that is ~1e-2 in float32, which on the diagonal would scale every
+    ``K_ii`` by ~0.995 and move the predictive mean at a training input by
+    as much.
+
     :param x1: ``(..., n1, D)``.
     :param x2: ``(..., n2, D)``.
     :param exp_theta: ``(..., D)`` per-dimension scales, or ``(..., 1)``
@@ -70,6 +81,10 @@ def squared_distance(x1, x2, exp_theta):
     sq2 = torch.sum(z2 * z2, dim=-1)
     cross = z1 @ z2.transpose(-1, -2)
     r2 = sq1[..., :, None] + sq2[..., None, :] - 2.0 * cross
+    if x2 is x1:
+        diag = torch.diagonal(r2, dim1=-2, dim2=-1)
+        floor = torch.maximum(diag[..., :, None], diag[..., None, :])
+        r2 = torch.where(r2 <= floor, torch.zeros_like(r2), r2)
     return torch.clamp_min(r2, 0.0)
 
 

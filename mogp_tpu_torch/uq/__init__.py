@@ -1,7 +1,7 @@
-"""UQ toolchain: experimental design, history matching, validation.
+"""UQ toolchain: experimental design, history matching, SMC, validation.
 
-Port of ``mogp_tpu/uq``.  Sequential design (MICE), gKDR and SMC are not
-ported yet (ROADMAP A6-A8).
+Port of ``mogp_tpu/uq``.  Sequential design (MICE) and gKDR are not
+ported yet (ROADMAP A6-A7).
 """
 
 from .experimental_design import (
@@ -11,6 +11,7 @@ from .experimental_design import (
     MonteCarloDesign,
 )
 from .history_matching import HistoryMatching
+from .smc import SMCResult, smc_history_match, systematic_resample
 from .validation import (
     Errors,
     PivotErrors,
@@ -28,6 +29,9 @@ __all__ = [
     "MaxiMinLHC",
     "MonteCarloDesign",
     "HistoryMatching",
+    "SMCResult",
+    "smc_history_match",
+    "systematic_resample",
     "Errors",
     "PivotErrors",
     "StandardErrors",

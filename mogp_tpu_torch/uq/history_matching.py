@@ -24,6 +24,7 @@ points.
 import numpy as np
 import torch
 
+from ..config import refuse_mesh
 from ..models.gp import GaussianProcessBase, PredictResult
 from ..models.mogp import MultiOutputGPBase
 
@@ -78,11 +79,7 @@ class HistoryMatching:
         self.I = None
         self.NROY = None
         self.RO = None
-        if mesh is not None:
-            raise NotImplementedError(
-                "HistoryMatching(mesh=...) is not ported to mogp_tpu_torch yet "
-                "(ROADMAP A9, multi-device); pass mesh=None"
-            )
+        refuse_mesh(mesh, "HistoryMatching")
         self.mesh = None
 
         if self.check_gp(gp):

@@ -117,6 +117,33 @@ def test_paths_without_the_extension_load(tmp_path):
     _same_gp(gp, load_gp(tmp_path / "bare", device="cpu"), x[:4])
 
 
+def test_inference_checkpoints_resolve_extension_less_paths(tmp_path):
+    """``save_mcmc`` / ``load_mcmc``, ``load_tagged`` and
+    ``remove_checkpoint`` name an extension-less path's file as
+    ``np.savez`` writes it; ``mogp_tpu``'s ``load_tagged`` checks the path
+    as given and so never resumes one."""
+    from mogp_tpu_torch.models.inference import MCMCResult
+    from mogp_tpu_torch.utils import checkpoint as ck
+
+    rng = np.random.RandomState(0)
+    res = MCMCResult(rng.randn(2, 5, 3), rng.rand(2, 5), rng.rand(2, 5) < 0.2, rng.rand(3),
+                     rng.rand(3))
+    ck.save_mcmc(res, tmp_path / "mcmc")
+    back = ck.load_mcmc(tmp_path / "mcmc")
+    for a, b in zip(res, back):
+        np.testing.assert_array_equal(a, b)
+
+    ck.atomic_savez(tmp_path / "run", tag=np.asarray("t1"), x=np.arange(3))
+    assert ck.load_tagged(tmp_path / "run", None, "NUTS")["x"].tolist() == [0, 1, 2]
+    assert ck.load_tagged(str(tmp_path / "run"), "t1", "NUTS") is not None
+    with pytest.warns(UserWarning, match="different run"):
+        assert ck.load_tagged(tmp_path / "run", "t2", "NUTS") is None
+    assert ck.load_tagged(tmp_path / "absent", "t1", "NUTS") is None
+    ck.remove_checkpoint(tmp_path / "run")
+    assert not os.path.exists(tmp_path / "run.npz")
+    ck.remove_checkpoint(tmp_path / "run")   # absent: nothing to do
+
+
 @pytest.fixture
 def gp_fit_calls(monkeypatch):
     """Every ``gp_fit`` call of ``MultiOutputGP``: (lanes, progressive_ok)."""

@@ -178,3 +178,18 @@ def test_jitter_carries_no_gradient():
         # the jittered lane is factored at condition ~1e6
         assert_allclose(got[lane].numpy(), ref, rtol=1e-7 if lane == 1 else RTOL,
                         atol=1e-7 * np.abs(ref).max())
+
+
+def test_replay_counts_the_launches_recorded_in_a_graph():
+    """A CUDA graph into which K2 was recorded n times launches it n times
+    a replay: ``replay`` replays the graph and adds n to ``launches``."""
+    class Graph:
+        replays = 0
+
+        def replay(self):
+            Graph.replays += 1
+
+    before, recorded = k2.launches, k2.recorded
+    k2.replay(Graph(), 3)
+    k2.replay(Graph(), 3)
+    assert Graph.replays == 2 and k2.launches == before + 6 and k2.recorded == recorded

@@ -119,3 +119,23 @@ def test_kernel_f_and_predict_match_jax(name):
     if jkern.form == "product":
         d2 = np.asarray(jkern.calc_r2(x1, x2, p))
         assert_allclose(tkern.calc_r2(x1, x2, p).numpy(), d2, rtol=RTOL, atol=ATOL)
+
+
+def test_training_distance_has_an_exact_zero_diagonal_in_float32():
+    """``K(x, x)``'s squared distances at correlation lengths of ~1e-2 in
+    unit inputs, where ``|z|^2`` ~ 4e4: the diagonal is exactly 0 in
+    float32 (the matmul form alone leaves a few ulps of ``|z|^2`` there),
+    and the rest within float32's cancellation of ``|z|^2`` of the direct
+    differences in float64."""
+    rng = np.random.RandomState(5)
+    x = rng.uniform(size=(3, 40, 14))
+    et = np.exp(9.5 + 0.2 * rng.normal(size=(3, 14)))
+    x32 = torch.as_tensor(x, dtype=torch.float32)
+    r2 = tk.squared_distance(x32, x32, torch.as_tensor(et, dtype=torch.float32)).numpy()
+    ref = np.sum((x[:, :, None, :] - x[:, None, :, :]) ** 2 * et[:, None, None, :], axis=-1)
+    assert np.all(np.diagonal(r2, axis1=1, axis2=2) == 0.0)
+    sq = np.sum(x**2 * et[:, None, :], axis=-1)
+    tol = 16 * np.finfo(np.float32).eps * (sq[:, :, None] + sq[:, None, :])
+    assert np.all(np.abs(r2 - ref) <= tol)
+    K = tk.SquaredExponential().kernel_f(x32, x32, torch.as_tensor(np.log(et), dtype=torch.float32))
+    assert np.all(np.diagonal(K.numpy(), axis1=1, axis2=2) == 1.0)

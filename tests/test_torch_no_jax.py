@@ -43,6 +43,8 @@ def test_no_file_of_the_port_imports_jax():
     assert any(p.parent.name == "tools" for p in files) and files[-1].is_file()
     assert {"uq", "compat.py", "meanfunction.py", "formula.py", "misc.py"} <= (
         {p.parent.name for p in files} | {p.name for p in files})
+    walked = {p.relative_to(PKG).as_posix() for p in files[:-1]}
+    assert {"ops/hmc.py", "models/inference.py", "uq/smc.py"} <= walked
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

@@ -170,3 +170,36 @@ def test_design_matrix_matches(formula):
     assert tmf.n_mean_params(formula, 3, state=st) == jmf.n_mean_params(formula, 3, state=sj)
     if formula is not None:
         assert tmf.parse_formula(formula) == jmf.parse_formula(formula)
+
+
+def test_sample_raw_moments_match_the_distributions():
+    """``GPPriors.sample_raw`` draws each slot from its distribution
+    (``mogp_tpu/models/priors.py:104-130``): the transformed draws' mean and
+    variance match the family's analytic moments within 5 standard errors,
+    and a weak slot's raw draws are uniform on [-2.5, 2.5]."""
+    priors = tpri.GPPriors(
+        corr=[tpri.NormalPrior(1.0, 0.1), tpri.LogNormalPrior(0.3, 0.5),
+              tpri.GammaPrior(3.0, 0.5), tpri.InvGammaPrior(6.0, 2.0), None],
+        cov=tpri.GammaPrior(2.0, 1.5), nugget_type="fit", nugget=tpri.InvGammaPrior(7.0, 1.0))
+    n = 40000
+    raw = priors.sample_raw(torch.Generator().manual_seed(0), n=n).numpy()
+    assert raw.shape == (n, 7)
+    assert priors.sample_raw(torch.Generator().manual_seed(0)).shape == (7,)
+    x = np.concatenate([np.exp(-0.5 * raw[:, :5]), np.exp(raw[:, 5:])], axis=1)
+    x[:, 4] = raw[:, 4]
+    ln = (np.exp(0.3**2 / 2) * 0.5, 0.5**2 * (np.exp(0.3**2) - 1) * np.exp(0.3**2))
+    moments = [(1.0, 0.01), ln, (1.5, 0.75), (2.0 / 5, 4.0 / (25 * 4)), (0.0, 25.0 / 12),
+               (3.0, 4.5), (1.0 / 6, 1.0 / (36 * 5))]
+    for slot, (mean, var) in enumerate(moments):
+        xs = x[:, slot]
+        m4 = np.mean((xs - xs.mean()) ** 4)
+        assert abs(xs.mean() - mean) < 5 * np.sqrt(var / n), slot
+        assert abs(xs.var() - var) < 5 * np.sqrt((m4 - xs.var() ** 2) / n), slot
+    assert -2.5 <= raw[:, 4].min() and raw[:, 4].max() <= 2.5
+    # the same coded families and parameters as the JAX package's
+    jprs = jpri.GPPriors(
+        corr=[jpri.NormalPrior(1.0, 0.1), jpri.LogNormalPrior(0.3, 0.5),
+              jpri.GammaPrior(3.0, 0.5), jpri.InvGammaPrior(6.0, 2.0), None],
+        cov=jpri.GammaPrior(2.0, 1.5), nugget_type="fit", nugget=jpri.InvGammaPrior(7.0, 1.0))
+    for got, ref in zip(priors.packed(), jprs.packed()):
+        np.testing.assert_array_equal(got, ref)
