@@ -27,7 +27,8 @@ Phases (any failure raises, so the exit code is not 0):
    shared-memory bound (n = 340 in float32, 240 in float64), every call
    launching K2 once; K3-K5, the blocked Cholesky variants v1-v3 (2c), above
    that bound up to n = 8192 (the large-n fit's (1, 4096) and (1, 8192),
-   its MAP fit's (4, 4096) lanes, its float64 fit's (1, 4096)), with a
+   its MAP fit's (4, 4096) lanes, its float64 fit's (1, 4096), phase 8's
+   25 candidate blocks (25, 4096)), with a
    non-PD lane and a lane whose pivot fails mid-matrix (its ``info`` the
    failing column), and on the ill-conditioned SqExp K of the n = 4096
    problem at its realized jitter; every call one panel loop.
@@ -99,18 +100,37 @@ Phases (any failure raises, so the exit code is not 0):
    NROY count, and a ``standardize=True`` copy's I against the host path of
    ``HistoryMatching`` on 4096 particles.
 
-Around each of phases 3, 4, 5, 6's sweep and 7a, 7b, 7e and 7f the
+8. MICE sequential design (float32): 8a ``DeviceMICEDesign`` at the
+   reference's ``device_scale`` width (``benchmarks/benchmark_MICE.py:70-103``:
+   Branin, seed 8213, 16 initial points, 8 acquisitions over 10^5
+   candidates in 25 blocks of 4096, 8 restarts x ``maxiter=60``,
+   ``nugget="adaptive"``), each step's wall time split into the fit and
+   the score step, ``mice_seconds_per_step`` (the warm median) and the peak
+   device memory; the chosen points inside the bounds and all 24 targets
+   finite; 8b the last step at the card's theta and jitter rungs against
+   float64 on the CPU: the masked NLP, the scores and means of block 0 and
+   of the block holding the card's argmax, and the argmax's regret under
+   the float64 scores; 8c ``MICEDesign`` (Branin, 10 initial points, 4
+   acquisitions over 50 candidates), at each step ``fast_predict_all`` and
+   the base GP's variances against float64 on the CPU at the card's theta
+   and nuggets.  The limits are ten times ``mogp_tpu``'s own float32 gaps
+   (``scripts/mice_reference_gap.py``).  No CUDA tensor may reach
+   ``torch.linalg.cholesky_ex`` in 8a or 8c.
+
+Around each of phases 3, 4, 5, 6's sweep, 7a, 7b, 7e, 7f, 8a and 8c the
 kernels' launch counters are zeroed just before and read just after;
 every kernel of the path must have launched (the fused prediction in 3,
-6, 7e and 7f, K2 in 4, 7a, 7b and 7e, K1 and the routed blocked variant
-in 5).  On the card the NUTS and VI potential is replayed from a CUDA
+6, 7e, 7f and 8a, K2 in 4, 7a, 7b, 7e, 8a and 8c, K1 and the routed
+blocked variant in 5, the routed blocked variant in 8a, where the other
+two must not launch).  On the card the NUTS and VI potential is replayed from a CUDA
 graph; K2's wrapper counts the launches of each replay
 (``ops/cholesky_batched.py::replay``).  The
 blocked variants the route does not take are checked and timed in 2c and
 listed with the launches they made in 5 (none) and ``"routed": false``.
 The last three lines of standard output are a JSON object describing each
 kernel (K1, the fused prediction, K2, K3-K5; K2's launches per leapfrog in
-7a and 7b, the fused kernel's per SMC stage in 7f), the ``nvidia-smi``
+7a and 7b, the fused kernel's per SMC stage in 7f, each kernel's per MICE
+step in 8a, K3-K5 also at (25, 4096)), the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits with a non-zero code and prints no result.
@@ -309,6 +329,55 @@ POTENTIAL_TOL = {"value_rel": 7.65e-3, "grad_rel": [1.4e-5] * N_DIM + [0.753, 3.
 # at 64 of its posterior samples and predict_queries (the script
 # above: 1.32e-2 in the mean, 1.61e-2 in the variance)
 PREDICT_TOL = {"mean": min(SLICE_TOL["mean"], 0.132), "var": min(SLICE_TOL["unc"], 0.161)}
+
+
+# phase 8: MICE sequential design.  8a: DeviceMICEDesign at full width, the
+# reference's device_scale configuration (benchmarks/benchmark_MICE.py:70-103):
+# Branin on MICE_BOUNDS from a LatinHypercubeDesign base, seed 8213, 16
+# initial points and 8 acquisitions over 10^5 candidates in blocks of 4096
+# (25 blocks, padded to 102,400), 8 restarts of at most 60 iterations a step,
+# SquaredExponential, nugget="adaptive"; 8c: MICEDesign on Branin, 10
+# initial points, 4 acquisitions over 50 candidates
+MICE_BOUNDS = [(-5.0, 10.0), (0.0, 15.0)]
+MICE_SEED, MICE_INIT, MICE_SAMPLES, MICE_CAND, MICE_BLOCK = 8213, 16, 8, 10**5, 4096
+MICE_TRIES, MICE_MAXITER = 8, 60
+MICE_HOST_SEED, MICE_HOST_INIT, MICE_HOST_SAMPLES, MICE_HOST_CAND = 74294, 10, 4, 50
+
+
+def branin(x):
+    """The Branin function on MICE_BOUNDS (benchmarks/common.py:15-23)."""
+    import numpy as np
+
+    x = np.atleast_2d(x)
+    x1, x2 = x[..., 0], x[..., 1]
+    b, c, t = 5.1 / (4 * np.pi**2), 5 / np.pi, 1 / (8 * np.pi)
+    return (x2 - b * x1**2 + c * x1 - 6.0) ** 2 + 10.0 * (1 - t) * np.cos(x1) + 10.0
+
+
+def mice_device_design(pkg, n_cand=MICE_CAND, **kw):
+    """8a's DeviceMICEDesign of ``pkg`` (mogp_tpu or mogp_tpu_torch), with
+    numpy's RNG seeded and its initial design run."""
+    import numpy as np
+
+    np.random.seed(MICE_SEED)
+    md = pkg.DeviceMICEDesign(pkg.LatinHypercubeDesign(MICE_BOUNDS), lambda x: branin(x)[0],
+                              n_samples=MICE_SAMPLES, n_init=MICE_INIT, n_cand=n_cand,
+                              cand_block=MICE_BLOCK, n_tries=MICE_TRIES, maxiter=MICE_MAXITER,
+                              **kw)
+    md.run_initial_design()
+    return md
+
+
+def mice_host_design(pkg, **kw):
+    """8c's MICEDesign of ``pkg``, seeded, its initial design run."""
+    import numpy as np
+
+    np.random.seed(MICE_HOST_SEED)
+    md = pkg.MICEDesign(pkg.LatinHypercubeDesign(MICE_BOUNDS), lambda x: branin(x)[0],
+                        n_samples=MICE_HOST_SAMPLES, n_init=MICE_HOST_INIT,
+                        n_cand=MICE_HOST_CAND, **kw)
+    md.run_initial_design()
+    return md
 
 
 def nuts_problem():
@@ -845,8 +914,10 @@ BLOCKED_REPLACES = {"v1": "tools/exp_chol.py:111", "v2": "tools/exp_chol.py:269"
                     "v3": "tools/exp_chol.py:411"}
 BLOCKED_SHAPES = [((64, 341), "float32"), ((4, 241), "float64"), ((15, 1000), "float32"),
                   ((15, 1000), "float64"), ((1, 4096), "float32"), ((1, 8192), "float32"),
-                  ((384, 341), "float32"), ((4, 4096), "float32"), ((1, 4096), "float64")]
+                  ((384, 341), "float32"), ((4, 4096), "float32"), ((1, 4096), "float64"),
+                  ((25, 4096), "float32")]
 BLOCKED_MAIN = ((1, 4096), "float32")  # the factorization of the large-n slice, phase 5
+BLOCKED_MICE = ((25, 4096), "float32")  # the candidate blocks of a MICE step, phase 8
 # the ill-conditioned K: a variant's error against the float64 factor may
 # be at most this multiple of cholesky_ex's own
 ILL_RATIO = 2.0
@@ -1004,7 +1075,7 @@ def phase_blocked(kbl):
         timings[((B, n), dtype_name)] = dict(ms, bound=bound, bound_by=bound_by)
         del A
         torch.cuda.empty_cache()
-    main = timings[BLOCKED_MAIN]
+    main, mice = timings[BLOCKED_MAIN], timings[BLOCKED_MICE]
     fastest = min(kbl.VARIANTS, key=lambda v: main[v])
     print("phase 2c: fastest variant at {} {}: {}".format(*BLOCKED_MAIN, fastest))
     return [{
@@ -1019,6 +1090,10 @@ def phase_blocked(kbl):
         "bound_ms": main["bound"],
         "bound_by": main["bound_by"],
         "library_ms": main["library"],  # torch.linalg.cholesky_ex
+        "at_mice_batch": {"shape": list(BLOCKED_MICE[0]) + [BLOCKED_MICE[0][1]],
+                          "max_abs_err": errs[(v,) + BLOCKED_MICE][1],
+                          "ms": mice[v], "plain_ms": mice["plain"], "bound_ms": mice["bound"],
+                          "bound_by": mice["bound_by"], "library_ms": mice["library"]},
     } for v in kbl.VARIANTS]
 
 
@@ -1857,6 +1932,301 @@ def phase_inference(mogp_tpu_torch, km, kb, pf, mgp, label):
         smc["fused_launches_per_stage"]
 
 
+# phase 8's limits: ten times mogp_tpu's own float32-vs-float64 gaps on a CPU
+# for the same quantities (scripts/mice_reference_gap.py), each at the
+# float32 run's own jitter rungs: the masked NLP on the one-rung ladder
+# (relative; gap 1.33e-3); on a block of 4096 candidates, the base GP's
+# variances (the largest difference over sigma2; 1.16e-5), the candidate
+# GP's leave-one-out variances (relative; 2.01e-2), computed as the port
+# does, 1 / [Q^-1]_ii from mogp_tpu's factor (mogp_tpu's own blockwise sum
+# puts 99.8% of the block's float32 scores more than 50% off, and gives no
+# limit), and the means (absolute, standardized units; 2.24e-3); 8c's
+# fast_predict_all, the same way (relative; 5.13e-3), and the base GP's
+# variances at its candidates (relative; 2.44e-4).  Each score s = unc1 /
+# unc2 is held to the two parts' limits carried through the ratio, and the
+# card's argmax to the sum of those limits at it and at the float64 argmax.
+MICE_TOL = {"nlp_rel": 1.33e-2, "unc1_of_sigma2": 1.16e-4, "unc2_rel": 0.201, "mu_abs": 2.24e-2,
+            "fast_predict_rel": 5.13e-2, "unc1_rel": 2.44e-3}
+
+
+class _step_timer:
+    """Within the block, ``mice_device``'s fit and score steps are timed
+    (host clock, ending in a synchronize): ``split["fit"]`` and
+    ``split["score"]`` hold a time per call."""
+
+    def __init__(self, tmd):
+        self.tmd = tmd
+        self.split = {"fit": [], "score": []}
+
+    def __enter__(self):
+        import torch
+
+        self.saved = self.tmd._mice_fit_step, self.tmd._mice_score_step
+
+        def timed(name, fn):
+            def wrapped(*args):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                self.split[name].append(time.perf_counter() - t0)
+                return out
+            return wrapped
+
+        self.tmd._mice_fit_step = timed("fit", self.saved[0])
+        self.tmd._mice_score_step = timed("score", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.tmd._mice_fit_step, self.tmd._mice_score_step = self.saved
+        return False
+
+
+def _mice_step_state(md):
+    """The last acquisition step's buffers of the DeviceMICEDesign ``md``
+    (run to its end): ``(x_buf, y_buf, mask, n_obs)`` in float64 numpy,
+    targets standardized as that step had them."""
+    import numpy as np
+
+    n_obs = md.inputs.shape[0] - 1
+    x_buf = np.tile(md.inputs[:1], (md.n_max, 1))
+    x_buf[:n_obs] = md.inputs[:n_obs]
+    y_buf = np.zeros(md.n_max)
+    y_buf[:n_obs] = (md.targets[:n_obs] - md._t_mean) / md._t_std
+    return x_buf, y_buf, (np.arange(md.n_max) < n_obs).astype(np.float64), n_obs
+
+
+def _mice_parts(tmd, kernel, data, raw, mask, n_obs, blk, cmask, q_nugget, fast):
+    """The two parts of one block's MICE scores, as the score step computes
+    them, at a fixed base nugget (``data``'s) and ``q_nugget`` on the
+    candidates' diagonal (the smoothing nugget ``fast`` and the rung's
+    jitter): ``(unc1, unc2)``, float64 numpy ``(B,)``."""
+    import torch
+    from mogp_tpu_torch.ops.cholesky import ChoFactor, cholesky_factor, jit_cholesky
+    from mogp_tpu_torch.uq.sequential_design import _loo_variances_all
+
+    dtype, device = data.inputs.dtype, data.inputs.device
+    D = blk.shape[-1]
+    sigma2 = torch.exp(raw[:, D])
+    K = sigma2[:, None, None] * kernel.kernel_f(data.inputs, data.inputs, raw[:, :D])
+    Kinv, nug = cholesky_factor(tmd._masked_cov(K, mask), data.fixed_nugget, "fixed",
+                                jitter_mask=mask)
+    L = Kinv.L[:, :n_obs, :n_obs]
+    alpha = ChoFactor(L).solve(data.targets[:, :n_obs])
+    blk = torch.as_tensor(blk, dtype=dtype, device=device)
+    cm = torch.as_tensor(cmask, dtype=dtype, device=device)
+    _, unc1 = tmd._base_predict(kernel, data, raw, L, alpha, nug, blk[0])
+    C = tmd._cand_cov(kernel, blk, cm, raw[:, :D], sigma2)
+    Lq, jit = jit_cholesky(C + q_nugget * torch.diag_embed(cm), jitter_mask=cm)
+    V = Lq.solve_L(torch.eye(blk.shape[1], dtype=dtype, device=device).expand_as(Lq.L))
+    unc2 = _loo_variances_all(V, q_nugget - fast + jit[:, None])
+    return tuple(t[0].to("cpu", torch.float64).numpy() for t in (unc1, unc2))
+
+
+def phase_mice_device(mogp_tpu_torch, km, kb, kbl, pf, label):
+    """8a and 8b (module doc); returns the launches per acquisition step of
+    K1, the fused prediction, K2 and the routed blocked variant."""
+    import numpy as np
+    import torch
+    from mogp_tpu_torch.models.gp import make_gp_data
+    from mogp_tpu_torch.models.priors import GPPriors
+    from mogp_tpu_torch.ops.cholesky import cholesky_factor, jit_cholesky
+    from mogp_tpu_torch.uq import mice_device as tmd
+
+    route = kb.route(MICE_BLOCK, torch.float32)
+    if route not in kbl.VARIANTS or pf.route("cuda", MICE_INIT + MICE_SAMPLES, 0, "stationary",
+                                             False, torch.float32) != "fused":
+        raise AssertionError("the MICE blocks are not on a blocked route, or the base GP is not "
+                             "on the fused one")
+    md = mice_device_design(mogp_tpu_torch, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km.launches = kb.launches = pf.launches = 0
+    for v in kbl.VARIANTS:
+        kbl.launches[v] = 0
+    steps = []
+    with forbid_cholesky_ex_on_cuda(), _step_timer(tmd) as timer:
+        for i in range(MICE_SAMPLES):
+            t0 = time.perf_counter()
+            md.run_next_point()
+            steps.append(time.perf_counter() - t0)
+            print("phase 8a: step {}: {} s (fit {} s, score {} s), n_obs {}, chose {}".format(
+                i, steps[-1], timer.split["fit"][-1], timer.split["score"][-1],
+                md.inputs.shape[0] - 1, md.inputs[-1].tolist()))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"kernel_matrix": km.launches, "predict_fused": pf.launches,
+                "cholesky_batched": kb.launches, **{"cholesky_blocked_" + v: kbl.launches[v]
+                                                    for v in kbl.VARIANTS}}
+    warm = steps[1:]
+    fig = {"seconds_per_step_warm_median": float(np.median(warm)),
+           "fit_seconds_warm_median": float(np.median(timer.split["fit"][1:])),
+           "score_seconds_warm_median": float(np.median(timer.split["score"][1:])),
+           "peak_gb": peak / 1e9,
+           "launches_per_step": {k: v / MICE_SAMPLES for k, v in launches.items()}}
+    print("phase 8a: DeviceMICEDesign, Branin, {} + {} points, {} candidates in blocks of {}, "
+          "{} restarts x maxiter {}, float32 on {}: steps {} s; mice_seconds_per_step (warm "
+          "median) {} s, fit {} s, score {} s; peak device memory {} GB; launches {}".format(
+              MICE_INIT, MICE_SAMPLES, MICE_CAND, MICE_BLOCK, MICE_TRIES, MICE_MAXITER, label,
+              steps, fig["seconds_per_step_warm_median"], fig["fit_seconds_warm_median"],
+              fig["score_seconds_warm_median"], fig["peak_gb"], launches))
+    lo, hi = np.array(MICE_BOUNDS).T
+    if (launches["cholesky_batched"] == 0 or launches["predict_fused"] == 0
+            or launches["cholesky_blocked_" + route] == 0
+            or any(launches["cholesky_blocked_" + v] for v in kbl.VARIANTS if v != route)):
+        raise AssertionError("8a did not launch K2, the fused prediction and the routed blocked "
+                             "variant, or launched another blocked variant")
+    if not (md.inputs.shape == (MICE_INIT + MICE_SAMPLES, 2) and np.all(md.inputs >= lo)
+            and np.all(md.inputs <= hi) and np.all(np.isfinite(md.targets))
+            and md.targets.shape == (MICE_INIT + MICE_SAMPLES,)):
+        raise AssertionError("8a chose points outside the bounds, or a target is not finite")
+
+    # 8b: the last step at the card's theta and rungs against float64 on the CPU
+    t0 = time.perf_counter()
+    x_buf, y_buf, mask, n_obs = _mice_step_state(md)
+    raw = md.get_current_theta()
+    D = x_buf.shape[1]
+    sigma2 = float(np.exp(raw[D]))
+    kernel = md._kernel
+    priors = GPPriors.default_priors(md.inputs[:n_obs], D, nugget_type="adaptive")
+
+    def on(device, **kw):
+        """The step's buffers, theta and mask on ``device``."""
+        data = make_gp_data(x_buf, y_buf, np.zeros((md.n_max, 0)), priors, device=device, **kw)
+        return (data, torch.as_tensor(raw, dtype=data.inputs.dtype, device=device)[None],
+                torch.as_tensor(mask, dtype=data.inputs.dtype, device=device))
+
+    card, raw_c, mask_c = on("cuda")
+    nlp_card = tmd.masked_gp_nlp(raw_c, card, mask_c, kernel, "adaptive",
+                                 sparse_ladder="single").item()
+    cpu, raw64, mask64 = on("cpu")
+    nlp_cpu = tmd.masked_gp_nlp(raw64, cpu, mask64, kernel, "adaptive",
+                                sparse_ladder="single").item()
+    d_nlp = abs(nlp_card - nlp_cpu) / abs(nlp_cpu)
+
+    # the card's rungs: the base factor's realized jitter and each checked
+    # block's, computed as the score step computes them
+    K = torch.exp(raw_c[:, D])[:, None, None] * kernel.kernel_f(card.inputs, card.inputs,
+                                                                 raw_c[:, :D])
+    _, nug = cholesky_factor(tmd._masked_cov(K, mask_c), torch.zeros(1, device="cuda"),
+                             "adaptive", jitter_mask=mask_c)
+    floor = 1e3 * float(torch.finfo(torch.float32).eps) * sigma2
+    fast = torch.clamp_min(nug * md.nugget_s, floor)
+    B = MICE_BLOCK
+    cands = np.tile(md.candidates[:1], (md._n_cand_pad, 1))
+    cands[:MICE_CAND] = md.candidates
+    cmask = (np.arange(md._n_cand_pad) < MICE_CAND).astype(np.float64)
+    best = md._last_index
+    fixed = {dev: on(dev, nugget_value=nug.item()) for dev in ("cuda", "cpu")}
+    ok = d_nlp <= MICE_TOL["nlp_rel"]
+    for b in sorted({0, best // B}):
+        sl = slice(b * B, min((b + 1) * B, MICE_CAND))
+        n_real = sl.stop - sl.start
+        blk, cm = cands[None, b * B:(b + 1) * B], cmask[None, b * B:(b + 1) * B]
+        C = tmd._cand_cov(kernel, torch.as_tensor(blk, dtype=torch.float32, device="cuda"),
+                          torch.as_tensor(cm, dtype=torch.float32, device="cuda"),
+                          raw_c[:, :D], torch.exp(raw_c[:, D]))
+        cm_c = torch.as_tensor(cm, dtype=torch.float32, device="cuda")
+        _, jit = jit_cholesky(C + fast * torch.diag_embed(cm_c), jitter_mask=cm_c)
+        del C
+        q_nugget = fast.item() + jit.item()
+        s64, m64 = tmd._mice_score_step(fixed["cpu"][1][0], fixed["cpu"][0], fixed["cpu"][2],
+                                        torch.as_tensor(blk), torch.as_tensor(cm), q_nugget, 0.0,
+                                        kernel, "fixed", True)
+        s64, m64 = s64.numpy()[:n_real], m64.numpy()[:n_real]
+        u1, u2 = (_mice_parts(tmd, kernel, *fixed[dev], n_obs, blk, cm, q_nugget, fast.item())
+                  for dev in ("cuda", "cpu"))
+        u1, u2 = ([p[:n_real] for p in parts] for parts in zip(u1, u2))
+        d_u1 = float(np.max(np.abs(u1[0] - u1[1]))) / sigma2
+        d_u2 = float(np.max(np.abs(u2[0] - u2[1]) / u2[1]))
+        d_m = float(np.max(np.abs(md._last_mu[sl] - m64)))
+        # each score against the float64 one, within the two parts' limits
+        # carried through s = unc1 / unc2 to first order
+        bound = MICE_TOL["unc1_of_sigma2"] * sigma2 / u2[1] + MICE_TOL["unc2_rel"] * s64
+        use = np.abs(md._last_scores[sl] - s64) / bound
+        ok_b = (d_u1 <= MICE_TOL["unc1_of_sigma2"] and d_u2 <= MICE_TOL["unc2_rel"]
+                and d_m <= MICE_TOL["mu_abs"] and float(use.max()) <= 1.0)
+        line = "phase 8b: block {} ({} candidates, the card's jitter {}): unc1 abs over sigma2 " \
+               "{} (limit {}), unc2 rel {} (limit {}), mu abs {} (limit {}); scores {} to {}, the " \
+               "largest difference {} ({} of the largest score), the largest share of its " \
+               "propagated limit {} (limit 1)".format(
+                   b, n_real, jit.item(), d_u1, MICE_TOL["unc1_of_sigma2"], d_u2,
+                   MICE_TOL["unc2_rel"], d_m, MICE_TOL["mu_abs"], s64.min(), s64.max(),
+                   float(np.max(np.abs(md._last_scores[sl] - s64))),
+                   float(np.max(np.abs(md._last_scores[sl] - s64)) / s64.max()),
+                   float(use.max()))
+        if b == best // B:
+            i, j = best - b * B, int(np.argmax(s64))
+            regret = float((s64[j] - s64[i]) / s64[j])
+            ok_b = ok_b and s64[j] - s64[i] <= bound[i] + bound[j]
+            line += "; the card's argmax {}: float64 score {} vs the block's float64 maximum {} " \
+                    "(regret {}, limit {})".format(best, s64[i], s64[j], regret,
+                                                   float((bound[i] + bound[j]) / s64[j]))
+        print(line + (" ok" if ok_b else " FAIL"))
+        ok = ok and ok_b
+    print("phase 8b: the last step against float64 on the CPU at the card's theta {}, base "
+          "nugget {} and candidate nugget {}: masked NLP (one-rung ladder) {} vs {}, rel {} "
+          "(limit {}); {} s {}".format(raw.tolist(), nug.item(), fast.item(), nlp_card, nlp_cpu,
+                                      d_nlp, MICE_TOL["nlp_rel"], time.perf_counter() - t0,
+                                      "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("8b: the card's MICE step disagrees with float64")
+    return fig
+
+
+def phase_mice_host(mogp_tpu_torch, kb, label):
+    """8c (module doc)."""
+    import numpy as np
+    import torch
+
+    md = mice_host_design(mogp_tpu_torch, device="cuda")
+    torch.cuda.synchronize()
+    kb.launches = 0
+    worst = {"fast_predict_rel": 0.0, "unc1_rel": 0.0}
+    t0 = time.perf_counter()
+    with forbid_cholesky_ex_on_cuda():
+        for i in range(MICE_HOST_SAMPLES):
+            md.run_next_point()
+            gp, fast = md.gp, md.gp_fast
+            theta = gp.theta.get_data()
+            unc1, unc2 = gp.predict(md.candidates)[1], fast.fast_predict_all()
+            ref = mogp_tpu_torch.GaussianProcess(gp.inputs, gp.targets, nugget=float(gp.nugget),
+                                                 device="cpu")
+            ref.fit(theta)
+            ref_fast = mogp_tpu_torch.MICEFastGP(md.candidates, np.ones(MICE_HOST_CAND),
+                                                 nugget=float(fast.nugget), device="cpu")
+            ref_fast.fit(theta[:ref_fast.n_params])
+            unc1_64, unc2_64 = ref.predict(md.candidates)[1], ref_fast.fast_predict_all()
+            d1 = float(np.max(np.abs(unc1 - unc1_64) / np.abs(unc1_64)))
+            d2 = float(np.max(np.abs(unc2 - unc2_64) / np.abs(unc2_64)))
+            worst["unc1_rel"] = max(worst["unc1_rel"], d1)
+            worst["fast_predict_rel"] = max(worst["fast_predict_rel"], d2)
+            print("phase 8c: step {}: theta {}, nugget {}, candidate nugget {}, chose {}; unc1 rel "
+                  "{} (limit {}), fast_predict_all rel {} (limit {})".format(
+                      i, theta.tolist(), gp.nugget, fast.nugget, md.inputs[-1].tolist(), d1,
+                      MICE_TOL["unc1_rel"], d2, MICE_TOL["fast_predict_rel"]))
+    torch.cuda.synchronize()
+    ok = (worst["unc1_rel"] <= MICE_TOL["unc1_rel"]
+          and worst["fast_predict_rel"] <= MICE_TOL["fast_predict_rel"] and kb.launches > 0
+          and np.all(np.isfinite(md.targets)))
+    print("phase 8c: MICEDesign, Branin, {} + {} points, {} candidates, float32 on {}: {} s, K2 "
+          "launches {} {}".format(MICE_HOST_INIT, MICE_HOST_SAMPLES, MICE_HOST_CAND, label,
+                                  time.perf_counter() - t0, kb.launches, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("8c: MICEDesign on the card disagrees with float64, or did not "
+                             "launch K2")
+
+
+def phase_mice(mogp_tpu_torch, km, kb, kbl, pf, label):
+    """Phase 8 (module doc); returns 8a's figures."""
+    t0 = time.perf_counter()
+    fig = phase_mice_device(mogp_tpu_torch, km, kb, kbl, pf, label)
+    t1 = time.perf_counter()
+    phase_mice_host(mogp_tpu_torch, kb, label)
+    print("phase 8: {} s (8a + 8b {} s, 8c {} s)".format(time.perf_counter() - t0, t1 - t0,
+                                                        time.perf_counter() - t1))
+    return fig
+
+
 def main():
     import torch
 
@@ -1913,6 +2283,9 @@ def main():
     phase_uq(mogp_tpu_torch, km, kb, pf, smi)
     chol_record["launches_per_leapfrog"], fused_record["launches_per_smc_stage"] = \
         phase_inference(mogp_tpu_torch, km, kb, pf, mgp, smi)
+    mice = phase_mice(mogp_tpu_torch, km, kb, kbl, pf, smi)["launches_per_step"]
+    for rec in (record, fused_record, chol_record, *blocked_records):
+        rec["launches_per_mice_step"] = mice[rec["name"]]
 
     print(json.dumps({"kernels": [record, fused_record, chol_record, *blocked_records]}))
     print(smi)

@@ -18,8 +18,10 @@ matching (``HistoryMatching``, whose large sweeps run on the card through
 the fused prediction kernel), ``validation``, and inference over the
 hyperparameters: batched NUTS (``sample_GP_MCMC``, ``sample_MOGP_MCMC``),
 ``fit_GP_VI``, ``predict_MCMC`` and SMC history matching
-(``smc_history_match``), with their checkpoints.  Sequential design,
-gKDR and the multi-device layer come later.
+(``smc_history_match``), with their checkpoints, and sequential design
+(``SequentialDesign``, ``MICEDesign``, ``MICEFastGP`` and the fixed-shape
+``DeviceMICEDesign``).  gKDR, the kernel derivatives and the multi-device
+layer come later.
 """
 
 __version__ = "0.1.0"
@@ -51,6 +53,8 @@ from .uq.experimental_design import (
     MonteCarloDesign,
 )
 from .uq.history_matching import HistoryMatching
+from .uq.mice_device import DeviceMICEDesign
+from .uq.sequential_design import MICEDesign, MICEFastGP, SequentialDesign
 from .uq.smc import smc_history_match
 from .utils.checkpoint import load_gp, load_mogp
 
@@ -60,6 +64,10 @@ __all__ = [
     "LatinHypercubeDesign",
     "MaxiMinLHC",
     "HistoryMatching",
+    "SequentialDesign",
+    "MICEDesign",
+    "MICEFastGP",
+    "DeviceMICEDesign",
     "validation",
     "MeanFunction",
     "Kernel",

@@ -11,6 +11,10 @@ so concurrent first uses do not collide.
 
 Nothing here runs at import time: the CPU-only test environment has no
 ``nvcc``, and only a launch on a CUDA tensor calls :func:`library`.
+
+A failed build, and a failed launch in any wrapper, raise
+:class:`KernelError`, a ``RuntimeError`` that callers which retry on
+numerical failures (``uq/sequential_design.py``) let through.
 """
 
 import ctypes
@@ -22,7 +26,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["library", "NVCC_FLAGS"]
+__all__ = ["library", "KernelError", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -34,6 +38,11 @@ NVCC_FLAGS = (
 )
 
 _lib = None
+
+
+class KernelError(RuntimeError):
+    """The CUDA kernels could not be built, or a launch failed."""
+
 # seconds spent in nvcc by the last build in this process (None: the
 # library was already on disk), and the compiler's output, which with
 # ``-Xptxas -v`` lists each kernel's registers and shared memory
@@ -45,7 +54,7 @@ def _nvcc():
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
-        raise RuntimeError("cannot build the CUDA kernels: no CUDA toolkit found")
+        raise KernelError("cannot build the CUDA kernels: no CUDA toolkit found")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
@@ -68,7 +77,7 @@ def _run(cmds):
     outs = [p.communicate()[0] for p in procs]
     for cmd, proc, out in zip(cmds, procs, outs):
         if proc.returncode != 0:
-            raise RuntimeError("nvcc failed ({}): {}\n{}".format(
+            raise KernelError("nvcc failed ({}): {}\n{}".format(
                 proc.returncode, " ".join(cmd), out))
     return "".join(outs)
 

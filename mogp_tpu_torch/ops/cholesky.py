@@ -231,11 +231,19 @@ def _finite(L):
     return torch.isfinite(L).flatten(-2).all(dim=-1)
 
 
-def jitter_ladder(A, maxtries=5, sparse_ladder=False):
+def jitter_ladder(A, maxtries=5, sparse_ladder=False, jitter_mask=None):
     """The jitter candidates ``(..., k)`` of :func:`jit_cholesky` for
-    ``A`` ``(..., n, n)`` (detached), in the order it tries them."""
+    ``A`` ``(..., n, n)`` (detached), in the order it tries them.  With a
+    ``jitter_mask`` ``(..., n)``, ``mean(diag)`` is taken over the marked
+    rows only, divided by ``max(sum(mask), 1)``."""
     dtype, device = A.dtype, A.device
-    mean_diag = torch.diagonal(A, dim1=-2, dim2=-1).mean(dim=-1)[..., None]
+    diag = torch.diagonal(A, dim1=-2, dim2=-1)
+    if jitter_mask is None:
+        mean_diag = diag.mean(dim=-1)[..., None]
+    else:
+        mask = jitter_mask.to(dtype)
+        mean_diag = (torch.sum(mask * diag, dim=-1)
+                     / torch.clamp_min(torch.sum(mask, dim=-1), 1.0))[..., None]
     if sparse_ladder == "single":
         # a Python scalar: no host-to-device copy, so the potential that
         # NUTS and VI evaluate can be captured in a CUDA graph
@@ -249,8 +257,16 @@ def jitter_ladder(A, maxtries=5, sparse_ladder=False):
     return torch.cat([torch.zeros_like(mean_diag), mean_diag * 1e-6 * exponents], dim=-1)
 
 
+def _jitter_eye(n, jitter_mask, dtype, device):
+    """The matrix the jitter (or nugget) multiplies: the identity, or
+    ``diag(jitter_mask)`` ``(..., n, n)``."""
+    if jitter_mask is None:
+        return torch.eye(n, dtype=dtype, device=device)
+    return torch.diag_embed(jitter_mask.to(dtype))
+
+
 def jit_cholesky(A, maxtries=5, reuse_factor=True, sparse_ladder=False,
-                 progressive_ok=True):
+                 progressive_ok=True, jitter_mask=None):
     """Jittered Cholesky of ``(..., n, n)``, per lane.
 
     The jitter candidates are computed on ``A.detach()``: the selected
@@ -272,14 +288,20 @@ def jit_cholesky(A, maxtries=5, reuse_factor=True, sparse_ladder=False,
     :func:`_chol_of_sum` (no second factorization); otherwise ``A +
     jitter I`` is factorized again through :func:`_chol`.
 
+    ``jitter_mask`` ``(..., n)``, 0/1 (the fixed-shape MICE design,
+    ``uq/mice_device.py``): ``d`` is the mean of the marked rows' diagonal
+    and the jitter is added on ``diag(mask)`` only, so a masked row of
+    ``m m^T * K + diag(1 - m)`` factors as an exact unit pivot, adding
+    nothing to the log determinant and nothing to the marked rows.
+
     :returns: ``(ChoFactor, jitter)``; ``jitter`` is ``(...)`` and NaN (with
         an all-NaN factor) where every candidate failed.
     """
     A_sg = A.detach()
     n = A.shape[-1]
     dtype, device = A.dtype, A.device
-    eye = torch.eye(n, dtype=dtype, device=device)
-    jitters = jitter_ladder(A_sg, maxtries, sparse_ladder)
+    eye = _jitter_eye(n, jitter_mask, dtype, device)
+    jitters = jitter_ladder(A_sg, maxtries, sparse_ladder, jitter_mask)
 
     if progressive_ok and sparse_ladder is False and n >= PROGRESSIVE_LADDER_MIN_N:
         L_sel = torch.full_like(A_sg, torch.nan)
@@ -294,7 +316,7 @@ def jit_cholesky(A, maxtries=5, reuse_factor=True, sparse_ladder=False,
             if bool(done.all()):
                 break
     else:
-        Ls = _factor(A_sg[..., None, :, :] + jitters[..., :, None, None] * eye)
+        Ls = _factor(A_sg[..., None, :, :] + jitters[..., :, None, None] * eye.unsqueeze(-3))
         ok = _finite(Ls)
         idx = torch.argmax(ok.to(torch.int8), dim=-1)  # first finite candidate
         any_ok = ok.any(dim=-1)
@@ -404,7 +426,7 @@ def _pivoted_factor(A, perm, rank):
 
 
 def cholesky_factor(K, nugget, nugget_type, reuse_factor=True, sparse_ladder=False,
-                    progressive_ok=True):
+                    progressive_ok=True, jitter_mask=None):
     """Factorize ``K`` by nugget type.
 
     :param K: ``(..., n, n)`` covariance without nugget.
@@ -413,16 +435,21 @@ def cholesky_factor(K, nugget, nugget_type, reuse_factor=True, sparse_ladder=Fal
         ``"fixed"``.
     :param reuse_factor, sparse_ladder, progressive_ok: passed to
         :func:`jit_cholesky` for ``"adaptive"``.
+    :param jitter_mask: ``(..., n)`` 0/1: the jitter (``"adaptive"``) or
+        the nugget (``"fit"``, ``"fixed"``) goes on ``diag(mask)`` only
+        (:func:`jit_cholesky`); not taken with ``"pivot"``.
     :returns: ``(factor, nugget)``: a ``ChoFactor`` (a
         ``PivotedChoFactor`` for ``"pivot"``) and the realized nugget.
     """
     if nugget_type == "adaptive":
         return jit_cholesky(K, reuse_factor=reuse_factor, sparse_ladder=sparse_ladder,
-                            progressive_ok=progressive_ok)
+                            progressive_ok=progressive_ok, jitter_mask=jitter_mask)
     if nugget_type == "pivot":
+        if jitter_mask is not None:
+            raise ValueError("jitter_mask is not supported with the pivoted factorization")
         return pivoted_cholesky(K), nugget
     if nugget_type in ("fit", "fixed"):
-        eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+        eye = _jitter_eye(K.shape[-1], jitter_mask, K.dtype, K.device)
         nugget = torch.as_tensor(nugget, dtype=K.dtype, device=K.device)
         return ChoFactor(fixed_cholesky(K + nugget[..., None, None] * eye)), nugget
     raise ValueError("Bad value for nugget_type in cholesky_factor")

@@ -116,7 +116,7 @@ def cholesky_batched(A):
 
         return cholesky_blocked(A, kernel)
 
-    from ._build import library
+    from ._build import KernelError, library
 
     lib = library()
     out = torch.empty_like(A)
@@ -127,7 +127,7 @@ def cholesky_batched(A):
         )
         capturing = torch.cuda.is_current_stream_capturing()
     if err:
-        raise RuntimeError(
+        raise KernelError(
             "cholesky_batched launch failed: {}".format(lib.mogp_cuda_error_string(err).decode())
         )
     global launches, recorded

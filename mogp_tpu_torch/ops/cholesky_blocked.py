@@ -79,7 +79,7 @@ def cholesky_blocked_ex(A, variant):
     if A.device.type != "cuda":
         raise ValueError("cholesky_blocked runs on CPU or CUDA, not {}".format(A.device))
 
-    from ._build import library
+    from ._build import KernelError, library
 
     lib = library()
     out = torch.empty_like(A)
@@ -91,7 +91,7 @@ def cholesky_blocked_ex(A, variant):
             int(A.dtype == torch.float64), VARIANTS.index(variant) + 1, stream,
         )
     if err:
-        raise RuntimeError(
+        raise KernelError(
             "cholesky_blocked launch failed: {}".format(lib.mogp_cuda_error_string(err).decode())
         )
     launches[variant] += 1

@@ -98,7 +98,7 @@ def kernel_matrix(x1, x2, exp_theta, sigma2, base="sqexp"):
     if max(n, m, D) > _MAX_INT:
         raise ValueError("kernel_matrix sizes must fit in a 32-bit int")
 
-    from ._build import library
+    from ._build import KernelError, library
 
     lib = library()
     with torch.cuda.device(x1.device):
@@ -109,7 +109,7 @@ def kernel_matrix(x1, x2, exp_theta, sigma2, base="sqexp"):
             L, n, m, D, _BASES[base], int(x1.dtype == torch.float64), stream,
         )
     if err:
-        raise RuntimeError(
+        raise KernelError(
             "kernel_matrix launch failed: {}".format(
                 lib.mogp_cuda_error_string(err).decode()
             )

@@ -169,12 +169,12 @@ def predict_fused(x1, x2, exp_theta, sigma2, Lk, alpha, Kinv_dm, dmtest, beta, L
 
     import ctypes
 
-    from ._build import library
+    from ._build import KernelError, library
 
     lib = library()
     size = torch.finfo(x1.dtype).bits // 8
     if lib.mogp_predict_fused_smem(n, M, size) != shared_bytes(n, M, x1.dtype):
-        raise RuntimeError("shared_bytes disagrees with csrc/kernel_matrix.cu")
+        raise KernelError("shared_bytes disagrees with csrc/kernel_matrix.cu")
     # the kernel copies the factor in 16-byte pieces: rows padded to ldl
     ldl = -(-n * size // 16) * 16 // size
     if ldl != n:
@@ -187,7 +187,7 @@ def predict_fused(x1, x2, exp_theta, sigma2, Lk, alpha, Kinv_dm, dmtest, beta, L
             int(bool(unc)), _BASES[base], int(x1.dtype == torch.float64), stream,
         )
     if err:
-        raise RuntimeError(
+        raise KernelError(
             "predict_fused launch failed: {}".format(lib.mogp_cuda_error_string(err).decode())
         )
     global launches

@@ -1,7 +1,7 @@
-"""UQ toolchain: experimental design, history matching, SMC, validation.
+"""UQ toolchain: experimental design, history matching, SMC, validation,
+sequential design (MICE).
 
-Port of ``mogp_tpu/uq``.  Sequential design (MICE) and gKDR are not
-ported yet (ROADMAP A6-A7).
+Port of ``mogp_tpu/uq``.  gKDR is not ported yet (ROADMAP A7).
 """
 
 from .experimental_design import (
@@ -11,6 +11,8 @@ from .experimental_design import (
     MonteCarloDesign,
 )
 from .history_matching import HistoryMatching
+from .mice_device import DeviceMICEDesign
+from .sequential_design import MICEDesign, MICEFastGP, SequentialDesign
 from .smc import SMCResult, smc_history_match, systematic_resample
 from .validation import (
     Errors,
@@ -29,6 +31,10 @@ __all__ = [
     "MaxiMinLHC",
     "MonteCarloDesign",
     "HistoryMatching",
+    "SequentialDesign",
+    "MICEDesign",
+    "MICEFastGP",
+    "DeviceMICEDesign",
     "SMCResult",
     "smc_history_match",
     "systematic_resample",

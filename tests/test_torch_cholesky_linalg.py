@@ -96,6 +96,66 @@ def test_cholesky_factor(nugget_type):
         assert_allclose(got_nug[lane].item(), float(nj), rtol=1e-15)
 
 
+def _masked(A, n_obs):
+    """``m m^T * A + diag(1 - m)`` with the first ``n_obs`` rows marked."""
+    m = (np.arange(A.shape[-1]) < n_obs).astype(np.float64)
+    return m[:, None] * m[None, :] * A + np.diag(1.0 - m), m
+
+
+@pytest.mark.parametrize("progressive", [False, True])
+def test_jit_cholesky_jitter_mask(monkeypatch, progressive):
+    """``jitter_mask`` per lane against mogp_tpu's ``jit_cholesky``: the
+    ladder's ``mean(diag)`` over the marked rows, the jitter on them only,
+    the masked pivots exactly 1; the progressive path selects per lane."""
+    if progressive:
+        monkeypatch.setattr(jchol, "_PROGRESSIVE_LADDER_MIN_N", 8)
+        monkeypatch.setattr(tchol, "PROGRESSIVE_LADDER_MIN_N", 8)
+    base = _batch(seed=5)
+    lanes = [_masked(base[lane], n_obs) for lane, n_obs in enumerate([24, 17, 10, 20])]
+    A = np.stack([a for a, _ in lanes])
+    M = np.stack([m for _, m in lanes])
+    F, jitter = tchol.jit_cholesky(_t(A), jitter_mask=_t(M))
+    for lane in range(4):
+        Fj, jit_j = jchol.jit_cholesky(jnp.asarray(A[lane]), jitter_mask=jnp.asarray(M[lane]))
+        if lane == 2:  # the marked block is not positive definite
+            assert np.isnan(np.asarray(jit_j)) and torch.isnan(jitter[lane])
+            assert torch.isnan(F.L[lane]).all()
+            continue
+        assert_allclose(jitter[lane].item(), float(jit_j), rtol=1e-12, atol=0)
+        rtol = RTOL_JITTERED if lane == 1 else RTOL
+        assert_allclose(F.L[lane].numpy(), np.asarray(Fj.L), rtol=rtol, atol=ATOL)
+        n_obs = int(M[lane].sum())
+        L = F.L[lane].numpy()
+        assert np.all(L[n_obs:, n_obs:] == np.eye(24 - n_obs)) and np.all(L[n_obs:, :n_obs] == 0)
+    assert float(jitter[0]) == 0.0 and float(jitter[1]) > 0.0
+    # the ladder's mean(diag) over the marked rows, divided by max(sum(m), 1)
+    lad = tchol.jitter_ladder(_t(A), jitter_mask=_t(M))
+    want = [np.sum(M[i] * np.diag(A[i])) / max(M[i].sum(), 1.0) for i in range(4)]
+    assert_allclose(lad[:, 1].numpy(), 1e-6 * np.array(want), rtol=1e-15)
+    empty = tchol.jitter_ladder(_t(A[:1]), jitter_mask=torch.zeros(1, 24, dtype=torch.float64))
+    assert torch.all(empty == 0.0)
+
+
+@pytest.mark.parametrize("nugget_type", ["adaptive", "fit", "fixed"])
+def test_cholesky_factor_jitter_mask(nugget_type):
+    """The nugget (``"fit"``, ``"fixed"``) or the jitter on ``diag(mask)``
+    only, against mogp_tpu's ``cholesky_factor``."""
+    rng = np.random.RandomState(6)
+    lanes = [_masked(_spd(rng, 20), n_obs) for n_obs in (20, 13)]
+    A = np.stack([a for a, _ in lanes])
+    M = np.stack([m for _, m in lanes])
+    nug = np.array([1e-3, 0.2])
+    F, got = tchol.cholesky_factor(_t(A), _t(nug), nugget_type, jitter_mask=_t(M))
+    for lane in range(2):
+        Fj, nj = jchol.cholesky_factor(jnp.asarray(A[lane]), jnp.asarray(nug[lane]), nugget_type,
+                                       jitter_mask=jnp.asarray(M[lane]))
+        assert_allclose(F.L[lane].numpy(), np.asarray(Fj.L), rtol=RTOL, atol=ATOL)
+        assert_allclose(got[lane].item(), float(nj), rtol=1e-15)
+    assert np.all(F.L[1, 13:, 13:].numpy() == np.eye(7))
+    with pytest.raises(ValueError, match="jitter_mask"):
+        tchol.cholesky_factor(_t(A), _t(nug), "pivot", jitter_mask=_t(M))
+
+
 def test_pivot_is_not_ported():
     """``"pivot"`` once raised ``NotImplementedError`` here, and the test
     keeps the name it had then, so that its history stays one line; it

@@ -30,8 +30,13 @@ def no_card(monkeypatch):
     lambda: mogp_tpu_torch.fit_GP_MAP(X, Y[0], n_tries=1, maxiter=2),
     lambda: mogp_tpu_torch.fit_GP_MAP(X, Y, n_tries=1, maxiter=2),
     lambda: make_gp_data(X, Y[0], np.ones((len(X), 1)), None),
+    lambda: mogp_tpu_torch.SequentialDesign(mogp_tpu_torch.LatinHypercubeDesign(2)),
+    lambda: mogp_tpu_torch.MICEDesign(mogp_tpu_torch.LatinHypercubeDesign(2)),
+    lambda: mogp_tpu_torch.MICEFastGP(X, np.ones(len(X)), nugget=1e-3),
+    lambda: mogp_tpu_torch.DeviceMICEDesign(mogp_tpu_torch.LatinHypercubeDesign(2), n_samples=2),
 ], ids=["resolve_device", "default_dtype", "GaussianProcess", "MultiOutputGP",
-        "fit_GP_MAP_single", "fit_GP_MAP_multi", "make_gp_data"])
+        "fit_GP_MAP_single", "fit_GP_MAP_multi", "make_gp_data", "SequentialDesign",
+        "MICEDesign", "MICEFastGP", "DeviceMICEDesign"])
 def test_no_card_raises_without_a_device(no_card, entry):
     with pytest.raises(RuntimeError, match="cuda"):
         entry()
