@@ -117,12 +117,52 @@ Phases (any failure raises, so the exit code is not 0):
    (``scripts/mice_reference_gap.py``).  No CUDA tensor may reach
    ``torch.linalg.cholesky_ex`` in 8a or 8c.
 
+9. gKDR and the kernel derivatives (their float64 CPU references run in
+   three worker processes meanwhile, and are checked after phase 10): 9a
+   ``gKDR`` at the repo's calibration demo's width
+   (``demos/calibration_at_scale.py:38-97``: 300 ``LatinHypercubeDesign``
+   inputs in 20 dimensions, a 3-dimensional active subspace, seed 1) in
+   float64 on the card, its warm wall (the median of 3), its parts by CUDA
+   events (the two K1 Grams, the factor on the blocked route, the solves,
+   the contraction, ``eigh``), the subspace overlap; the eigenvalues within
+   1e-9 (relative to the largest) and the rank-3 projector within 1e-8 of
+   float64 on the CPU; then ``fit_GP_MAP`` of the 100 outputs (15
+   restarts, ``maxiter=50``, float32, 1500 lanes on K2) on the reduced
+   inputs, every output fit and phase 4's quality gate; 9b
+   ``benchmarks/benchmark_kdr_GP.py``'s loss curve (N = M = 100, 5 folds,
+   K = 1, 2, 4, a 3-restart GP fit per fold on the card; gKDR at N = 80
+   on K2 in float64), argmin K = 1 and each loss within ten times
+   ``mogp_tpu``'s own float32 gap of float64 on the CPU; 9c
+   ``kernel_deriv`` and ``kernel_hessian`` of the five kernels at phase
+   3's inputs ((210, 210), 14 parameters) in float32 against float64 on
+   the CPU, within ten times ``mogp_tpu``'s float32 gap
+   (``scripts/gkdr_reference_gap.py``), finite and exactly 0 at zero
+   distance.
+10. The multi-device layer on one card: 10a ``auto_mesh()`` (shape
+    ``{"outputs": 1}``), ``fit_GP_MAP(mesh=)`` at phase 4's configuration
+    held to phase 4's gate, the outputs whose theta is bit-identical to
+    phase 4's counted; 10b ``DeviceMesh([cuda:0] * 4)``, whose shards run
+    in turn, through every path's split and merge: the fit as in 10a;
+    ``HistoryMatching(mesh=)`` over phase 6's 10^7 coords (I within 1e-6
+    of phase 6's, the same NROY set); ``smc_history_match(mesh=)`` at 7f's
+    configuration and seed (particles and I within 1e-6 of 7f's);
+    ``sample_GP_MCMC(mesh=)`` on 7a's GP, 8 chains, 20 + 20, trees of at
+    most 63 leapfrogs, against the unsharded run (finite; each pooled mean
+    within 4 combined Monte Carlo standard errors); 2 steps of 8a through
+    ``DeviceMICEDesign(mesh=)``, the same points as 8a's first two.  No
+    CUDA tensor may reach ``torch.linalg.cholesky_ex`` in 9a, 9b or 10's
+    fit and MICE.  One card measures no speedup from several.
+
 Around each of phases 3, 4, 5, 6's sweep, 7a, 7b, 7e, 7f, 8a and 8c the
 kernels' launch counters are zeroed just before and read just after;
 every kernel of the path must have launched (the fused prediction in 3,
 6, 7e, 7f and 8a, K2 in 4, 7a, 7b, 7e, 8a and 8c, K1 and the routed
 blocked variant in 5, the routed blocked variant in 8a, where the other
-two must not launch).  On the card the NUTS and VI potential is replayed from a CUDA
+two must not launch), and around 9a's gKDR and fit, 9b and each path of
+10 (K1 twice and the blocked route once per gKDR, K2 in 9a's fit, 9b and
+10's fits and NUTS, the fused kernel in 10b's sweep and SMC, K1, the
+fused kernel and the routed blocked variant in 10b's MICE).  On the card
+the NUTS and VI potential is replayed from a CUDA
 graph; K2's wrapper counts the launches of each replay
 (``ops/cholesky_batched.py::replay``).  The
 blocked variants the route does not take are checked and timed in 2c and
@@ -130,7 +170,9 @@ listed with the launches they made in 5 (none) and ``"routed": false``.
 The last three lines of standard output are a JSON object describing each
 kernel (K1, the fused prediction, K2, K3-K5; K2's launches per leapfrog in
 7a and 7b, the fused kernel's per SMC stage in 7f, each kernel's per MICE
-step in 8a, K3-K5 also at (25, 4096)), the ``nvidia-smi``
+step in 8a, K3-K5 also at (25, 4096); each kernel's launches per gKDR
+and in 9a's fit and 9b, and under the mesh in 10a and 10b), the
+``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits with a non-zero code and prints no result.
@@ -378,6 +420,62 @@ def mice_host_design(pkg, **kw):
                         n_cand=MICE_HOST_CAND, **kw)
     md.run_initial_design()
     return md
+
+
+# phase 9: gKDR and the kernel derivatives.  9a: the repo's calibration
+# demo (demos/calibration_at_scale.py:38-97): 300 LatinHypercubeDesign
+# inputs in 20 dimensions, 100 outputs driven by a 3-dimensional active
+# subspace, seed 1; gKDR(X, Y[0], K=3), then the 100-output MAP fit on the
+# reduced inputs.  9b: benchmarks/benchmark_kdr_GP.py:11-33 at its width
+# (N = M = 100, seed 3, Y = X[:, 0], 5 folds, K in {1, 2, 4}, both scales
+# 5, a GP fit with 3 restarts per fold).  9c: the five kernels' derivatives
+# at phase 3's inputs and the first output's correlation lengths.
+KDR_D_FULL, KDR_D_ACTIVE, KDR_OUTPUTS, KDR_N, KDR_SEED = 20, 3, 100, 300, 1
+KDR_BENCH_N, KDR_BENCH_SEED, KDR_BENCH_FOLDS, KDR_BENCH_KS = 100, 3, 5, (1, 2, 4)
+KERNEL_NAMES = ("SquaredExponential", "Matern52", "UniformSqExp", "UniformMat52", "ProductMat52")
+
+
+def kdr_demo_problem(pkg):
+    """9a's inputs ``(300, 20)``, targets ``(100, 300)`` and the true active
+    subspace ``(20, 3)`` (the demo's simulator, its seed; numpy's RNG seeded
+    for the design, which the demo leaves unseeded)."""
+    import numpy as np
+
+    rng = np.random.RandomState(KDR_SEED)
+    w = np.linalg.qr(rng.randn(KDR_D_FULL, KDR_D_ACTIVE))[0]
+    np.random.seed(KDR_SEED)
+    X = pkg.LatinHypercubeDesign(KDR_D_FULL).sample(KDR_N)
+    z = X @ w
+    g = np.arange(KDR_OUTPUTS)[:, None]
+    Y = (np.sin((1 + 0.02 * g) * z[:, 0]) + (2 + 0.01 * g) * z[:, 1] ** 2
+         + (0.5 + 0.003 * g) * np.cos(3 * z[:, 2]) * z[:, 0])
+    return X, Y + 0.01 * rng.randn(KDR_OUTPUTS, KDR_N), w
+
+
+def kdr_bench_losses(pkg, **kw):
+    """9b: benchmark_kdr_GP.py's cross-validated L1 losses for each K, by
+    ``pkg`` (``kw``, e.g. ``device``, go to its gKDR and GaussianProcess);
+    numpy's RNG seeded once, as the benchmark seeds it."""
+    import numpy as np
+
+    np.random.seed(KDR_BENCH_SEED)
+    X = np.random.rand(KDR_BENCH_N, KDR_BENCH_N)
+    Y = X[:, 0].copy()
+
+    def train_model(x, y):
+        gp = pkg.fit_GP_MAP(pkg.GaussianProcess(x, y, **kw), n_tries=3)
+        return lambda xp: gp.predict(xp)[0]
+
+    return [float(pkg.gKDR._compute_loss(X, Y, train_model, KDR_BENCH_FOLDS, K, X_scale=5.0,
+                                         Y_scale=5.0, **kw)) for K in KDR_BENCH_KS]
+
+
+def deriv_problem(kernel):
+    """9c's inputs (phase 3's, ``(210, 14)``) and raw parameters (output 0's
+    correlation lengths; the first alone for the uniform forms)."""
+    x, _ = make_data(N_OUTPUTS)
+    theta = make_thetas()[0][:N_DIM]
+    return x, theta[:1] if kernel.form == "uniform" else theta
 
 
 def nuts_problem():
@@ -1304,8 +1402,9 @@ def phase_slice(mogp_tpu_torch, km, kb, pf, label):
     return launches
 
 
-def phase_fit(mogp_tpu_torch, km, kb, label):
-    """The MAP fit at full width (bench.py:107-128); returns K2's launches."""
+def phase_fit(mogp_tpu_torch, km, kb, label, keep):
+    """The MAP fit at full width (bench.py:107-128); returns K2's launches.
+    Keeps its winners and the float64 CPU fit's NLPs for phase 10."""
     import numpy as np
     import torch
     from mogp_tpu_torch.models import fitting
@@ -1363,6 +1462,8 @@ def phase_fit(mogp_tpu_torch, km, kb, label):
                       "ok" if ok else "FAIL"))
     if not ok:
         raise AssertionError("the card's MAP fit is worse than the float64 reference")
+    keep["fit_thetas"] = [em.theta.get_data() for em in mgp.emulators]
+    keep["fit_nlp_cpu"] = nlp_cpu
     return launches, mgp
 
 
@@ -1376,10 +1477,11 @@ def _unpermuted(errors):
     return z
 
 
-def phase_uq(mogp_tpu_torch, km, kb, pf, label):
+def phase_uq(mogp_tpu_torch, km, kb, pf, label, keep):
     """The UQ workflow at full width (module doc, phase 6): the design, the
     10^7-point history-matching sweep, validation and a pivot-nugget
-    emulator; returns the sweep's launches of the fused kernel."""
+    emulator; returns the sweep's launches of the fused kernel.  Keeps the
+    sweep's emulator, observations, coords and I for phase 10."""
     import numpy as np
     import torch
     from mogp_tpu_torch.uq import history_matching as thm
@@ -1457,6 +1559,7 @@ def phase_uq(mogp_tpu_torch, km, kb, pf, label):
         raise AssertionError("the sweep did not launch predict_fused, or launched kernel_matrix")
 
     nroy, ro = np.asarray(hm.get_NROY(), dtype=np.int64), np.asarray(hm.get_RO(), dtype=np.int64)
+    keep["sweep"] = dict(mgp=mgp, obs=obs, coords=coords, I=I, nroy=nroy)
     count = np.zeros(N_SWEEP, dtype=np.int8)
     np.add.at(count, nroy, 1)
     np.add.at(count, ro, 1)
@@ -1640,9 +1743,10 @@ def _chain_figures(results, seconds, stats, k2):
     }
 
 
-def phase_nuts(mogp_tpu_torch, km, kb, pf, label):
+def phase_nuts(mogp_tpu_torch, km, kb, pf, label, keep):
     """7a, 7d and 7e (module doc, phase 7): NUTS, VI and predict_MCMC on
-    bench.py's NUTS problem; returns the figures for the kernel line."""
+    bench.py's NUTS problem; returns the figures for the kernel line and
+    keeps 7a's GP for phase 10."""
     import numpy as np
     import torch
     from mogp_tpu_torch.models import inference as tinf
@@ -1655,6 +1759,7 @@ def phase_nuts(mogp_tpu_torch, km, kb, pf, label):
     gp = mogp_tpu_torch.fit_GP_MAP(
         mogp_tpu_torch.GaussianProcess(x, y, nugget="fit", device="cuda"), n_tries=4, maxiter=50)
     theta = gp.theta.get_data()
+    keep["nuts_gp"] = gp
     print("phase 7a: MAP fit (4 restarts, maxiter=50) {} s".format(time.perf_counter() - t0))
     kw = dict(n_chains=NUTS_CHAINS, theta0=theta)
     tinf.sample_GP_MCMC(gp, n_samples=4, n_warmup=4, seed=0, **kw)  # warm-up
@@ -1834,9 +1939,10 @@ def phase_oracle(mogp_tpu_torch, label):
         raise AssertionError("the card's float64 NUTS misses the quadrature oracle")
 
 
-def phase_smc(mogp_tpu_torch, km, kb, pf, label):
+def phase_smc(mogp_tpu_torch, km, kb, pf, label, keep):
     """7f: smc_history_match on phase 6's emulator and observations;
-    returns its figures."""
+    returns its figures and keeps the emulator, the arguments and the
+    result for phase 10."""
     import numpy as np
     import torch
     from mogp_tpu_torch.uq import history_matching as thm
@@ -1857,6 +1963,7 @@ def phase_smc(mogp_tpu_torch, km, kb, pf, label):
     res = mogp_tpu_torch.smc_history_match(mgp, seed=1, **kw)
     wall = time.perf_counter() - t0
     fused, k1 = pf.launches, km.launches
+    keep["smc"] = dict(mgp=mgp, kw=kw, seed=1, res=res)
     fig = {"seconds": wall, "fused_launches": fused,
            "fused_launches_per_stage": fused / SMC_STAGES}
     print("phase 7f: smc_history_match {} particles x {} outputs, {} stages x {} MH steps, rank 1, "
@@ -1911,7 +2018,7 @@ def phase_smc(mogp_tpu_torch, km, kb, pf, label):
     return fig
 
 
-def phase_inference(mogp_tpu_torch, km, kb, pf, mgp, label):
+def phase_inference(mogp_tpu_torch, km, kb, pf, mgp, label, keep):
     """Phase 7 (module doc): 7a-7f; returns K2's launches per leapfrog (7a)
     and the fused kernel's per SMC stage (7f)."""
     t_phase = time.perf_counter()
@@ -1923,10 +2030,10 @@ def phase_inference(mogp_tpu_torch, km, kb, pf, mgp, label):
         seconds[name] = time.perf_counter() - t0
         return out
 
-    nuts = timed("7a 7d 7e", phase_nuts, km, kb, pf, label)
+    nuts = timed("7a 7d 7e", phase_nuts, km, kb, pf, label, keep)
     mogp = timed("7b", phase_mogp_nuts, kb, mgp, label)
     timed("7c", phase_oracle, label)
-    smc = timed("7f", phase_smc, km, kb, pf, label)
+    smc = timed("7f", phase_smc, km, kb, pf, label, keep)
     print("phase 7: {} s; by part {}".format(time.perf_counter() - t_phase, json.dumps(seconds)))
     return {"7a": nuts["k2_launches_per_leapfrog"], "7b": mogp["k2_launches_per_leapfrog"]}, \
         smc["fused_launches_per_stage"]
@@ -2022,9 +2129,10 @@ def _mice_parts(tmd, kernel, data, raw, mask, n_obs, blk, cmask, q_nugget, fast)
     return tuple(t[0].to("cpu", torch.float64).numpy() for t in (unc1, unc2))
 
 
-def phase_mice_device(mogp_tpu_torch, km, kb, kbl, pf, label):
+def phase_mice_device(mogp_tpu_torch, km, kb, kbl, pf, label, keep):
     """8a and 8b (module doc); returns the launches per acquisition step of
-    K1, the fused prediction, K2 and the routed blocked variant."""
+    K1, the fused prediction, K2 and the routed blocked variant, and keeps
+    8a's chosen points for phase 10."""
     import numpy as np
     import torch
     from mogp_tpu_torch.models.gp import make_gp_data
@@ -2057,6 +2165,7 @@ def phase_mice_device(mogp_tpu_torch, km, kb, kbl, pf, label):
     launches = {"kernel_matrix": km.launches, "predict_fused": pf.launches,
                 "cholesky_batched": kb.launches, **{"cholesky_blocked_" + v: kbl.launches[v]
                                                     for v in kbl.VARIANTS}}
+    keep["mice_inputs"] = md.inputs.copy()
     warm = steps[1:]
     fig = {"seconds_per_step_warm_median": float(np.median(warm)),
            "fit_seconds_warm_median": float(np.median(timer.split["fit"][1:])),
@@ -2216,15 +2325,463 @@ def phase_mice_host(mogp_tpu_torch, kb, label):
                              "launch K2")
 
 
-def phase_mice(mogp_tpu_torch, km, kb, kbl, pf, label):
+def phase_mice(mogp_tpu_torch, km, kb, kbl, pf, label, keep):
     """Phase 8 (module doc); returns 8a's figures."""
     t0 = time.perf_counter()
-    fig = phase_mice_device(mogp_tpu_torch, km, kb, kbl, pf, label)
+    fig = phase_mice_device(mogp_tpu_torch, km, kb, kbl, pf, label, keep)
     t1 = time.perf_counter()
     phase_mice_host(mogp_tpu_torch, kb, label)
     print("phase 8: {} s (8a + 8b {} s, 8c {} s)".format(time.perf_counter() - t0, t1 - t0,
                                                         time.perf_counter() - t1))
     return fig
+
+
+# phase 9's limits.  9a: the card's float64 gKDR against the port's on the
+# CPU (the same function, K1's direct differences against the plain
+# version's matmul form; cond(Kx + N EPS I) ~ 1e8 magnifies their last
+# ulps); the fit: phase 4's gate.  9b, 9c: ten times mogp_tpu's own
+# float32-vs-float64 gap on the CPU for the same quantities
+# (scripts/gkdr_reference_gap.py): each K's loss relative (its float32
+# gKDR cannot resolve N EPS = 8e-7, so its losses are 31-98% off), each
+# kernel's derivative and Hessian as the largest difference over the
+# largest entry.
+GKDR_TOL = {"evals_rel": 1e-9, "projector": 1e-8}
+KDR_LOSS_TOL = [3.133, 9.846, 7.451]
+DERIV_TOL = {
+    "SquaredExponential": (1.109e-5, 1.845e-5), "Matern52": (1.204e-5, 4.198e-5),
+    "UniformSqExp": (2.592e-5, 3.086e-5), "UniformMat52": (5.260e-5, 8.706e-5),
+    "ProductMat52": (5.393e-6, 6.817e-6),
+}
+# phase 10: the mesh.  10a: auto_mesh() on the card; 10b: one card named
+# MESH_SHARDS times, which drives every path's split and merge (the shards
+# run one after another).  The sweep, SMC and the NUTS chains are held to
+# the unsharded runs of phases 6, 7f and an unsharded run here: I and the
+# particles within MESH_RTOL relative (the same float32 kernels on other
+# batch sizes), the NROY set equal; the NUTS chains' pooled mean of every
+# parameter within NUTS_MESH_MCSE times the two runs' combined Monte Carlo
+# standard error (sd / sqrt(ESS)): a tree decision that rounding flips
+# sends a chain down another trajectory, after which the two runs are two
+# draws from one posterior; 10b's NUTS: 8 chains, 20 + 20, trees of at most
+# 2**NUTS_MESH_DEPTH - 1 leapfrogs (cut from 8 to keep the four shards'
+# turns short).  MICE: 2 steps of 8a, the same chosen points.
+MESH_SHARDS, MESH_RTOL = 4, 1e-6
+NUTS_MESH_CHAINS, NUTS_MESH_ITERS, NUTS_MESH_DEPTH, NUTS_MESH_MCSE, NUTS_MESH_SEED = \
+    8, 20, 6, 4.0, 3
+MICE_MESH_STEPS = 2
+
+
+def _ref_gkdr_fit():
+    """9a's gKDR by the port in float64 on the CPU, and the MAP fit of the
+    first N_QUALITY outputs on its reduced inputs, seeded as on the card
+    (a worker process); ``(B, evals, NLPs)``."""
+    import numpy as np
+    import torch
+    import mogp_tpu_torch
+
+    torch.set_num_threads(4)
+    X, Y, _ = kdr_demo_problem(mogp_tpu_torch)
+    dr = mogp_tpu_torch.gKDR(X, Y[0], K=KDR_D_ACTIVE, device="cpu")
+    np.random.seed(KDR_SEED)
+    mgp = mogp_tpu_torch.fit_GP_MAP(
+        mogp_tpu_torch.MultiOutputGP(dr(X), Y[:N_QUALITY], nugget="adaptive", device="cpu"),
+        n_tries=N_TRIES, maxiter=MAXITER)
+    return dr.B, dr.evals, np.array([em.current_logpost for em in mgp.emulators])
+
+
+def _ref_kdr_bench():
+    """9b's losses in float64 on the CPU (a worker process)."""
+    import torch
+    import mogp_tpu_torch
+
+    torch.set_num_threads(2)
+    return kdr_bench_losses(mogp_tpu_torch, device="cpu")
+
+
+def _ref_derivs():
+    """9c's derivatives and Hessians in float64 on the CPU (a worker
+    process), by kernel name."""
+    import torch
+    from mogp_tpu_torch.ops.kernels import get_kernel
+
+    torch.set_num_threads(2)
+    out = {}
+    for name in KERNEL_NAMES:
+        kernel = get_kernel(name)
+        x, theta = deriv_problem(kernel)
+        out[name] = (kernel.kernel_deriv(x, x, theta).numpy(),
+                     kernel.kernel_hessian(x, x, theta).numpy())
+    return out
+
+
+def cpu_references(pool):
+    """Start phase 9's float64 CPU references in the worker processes of
+    ``pool``; they run while the card runs phases 9 and 10."""
+    return {"9a": pool.submit(_ref_gkdr_fit), "9b": pool.submit(_ref_kdr_bench),
+            "9c": pool.submit(_ref_derivs)}
+
+
+def _zero(km, kb, kbl, pf):
+    km.launches = kb.launches = pf.launches = 0
+    for v in kbl.VARIANTS:
+        kbl.launches[v] = 0
+
+
+def _launches(km, kb, kbl, pf):
+    """The launch counters, by the kernel line's names."""
+    return {"kernel_matrix": km.launches, "predict_fused": pf.launches,
+            "cholesky_batched": kb.launches,
+            **{"cholesky_blocked_" + v: kbl.launches[v] for v in kbl.VARIANTS}}
+
+
+def _quality(mogp_tpu_torch, inputs, targets, mgp, nlp_cpu):
+    """Phase 4's gate: the card's winners of the first N_QUALITY outputs
+    re-evaluated in float64 on the CPU against the float64 CPU fit's NLPs;
+    ``(gap, ok)``."""
+    import numpy as np
+
+    card = mogp_tpu_torch.MultiOutputGP(inputs, targets[:N_QUALITY], nugget="adaptive",
+                                        device="cpu")
+    card.fit([em.theta.get_data() for em in mgp.emulators[:N_QUALITY]])
+    nlp_card = np.array([em.current_logpost for em in card.emulators])
+    gap = float(np.mean(nlp_card - nlp_cpu))
+    return gap, bool(np.isfinite(nlp_card).all()) and gap <= NLP_GAP
+
+
+def phase_gkdr(mogp_tpu_torch, km, kb, kbl, pf, label):
+    """9a on the card (module doc): gKDR at the calibration demo's width and
+    the 100-output fit on the reduced inputs; returns the launches and the
+    check against the CPU references, which runs once they are ready."""
+    import numpy as np
+    import torch
+    from mogp_tpu_torch.uq import dimension_reduction as tdr
+
+    X, Y, w = kdr_demo_problem(mogp_tpu_torch)
+    route = kb.route(KDR_N, torch.float64)
+    route = "cholesky_batched" if route == "k2" else "cholesky_blocked_" + route
+    mogp_tpu_torch.gKDR(X, Y[0], K=KDR_D_ACTIVE, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    _zero(km, kb, kbl, pf)
+    walls = []
+    with forbid_cholesky_ex_on_cuda():
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dr = mogp_tpu_torch.gKDR(X, Y[0], K=KDR_D_ACTIVE, device="cuda")
+            walls.append(time.perf_counter() - t0)
+    per_gkdr = {k: v / 3 for k, v in _launches(km, kb, kbl, pf).items()}
+
+    # the parts, by CUDA events around each step of the projection
+    Xt = torch.as_tensor(X, device="cuda")
+    Yt = torch.as_tensor(Y[0].reshape(-1, 1), device="cuda")
+    s2x, s2y = tdr.median_dist(X) ** 2, tdr.median_dist(Y[0].reshape(-1, 1)) ** 2
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    with torch.no_grad():
+        ev[0].record()
+        Kx, Ky = tdr._grams(Xt, Yt, s2x, s2y)
+        ev[1].record()
+        L = tdr._factor(Kx, 1e-8)
+        ev[2].record()
+        F = tdr._solves(L, Ky)
+        ev[3].record()
+        R = tdr._contraction(Xt, Kx, F, s2x)
+        ev[4].record()
+        tdr._eig(R)
+        ev[5].record()
+    ev[5].synchronize()
+    parts = dict(zip(["grams_k1", "factor", "solves", "contraction", "eigh"],
+                     [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]))
+    overlap = np.linalg.svd(dr.B[:, :KDR_D_ACTIVE].T @ w)[1]
+    print("phase 9a: gKDR(X {}, Y[0], K={}), float64 on {}: warm wall {} s (median of "
+          "{}); parts by CUDA events {} ms; launches per gKDR {} (route at n = {}: {}); evals "
+          "{} ...; subspace overlap (singular values of B[:, :3]^T w) {}".format(
+              X.shape, KDR_D_ACTIVE, label, float(np.median(walls)), walls, json.dumps(parts),
+              per_gkdr, KDR_N, route,
+              dr.evals[:5].tolist(), overlap.tolist()))
+    if per_gkdr["kernel_matrix"] != 2 or per_gkdr[route] != 1:
+        raise AssertionError("9a: gKDR did not launch K1 twice and its Cholesky route once")
+
+    Xr = dr(X)
+    _zero(km, kb, kbl, pf)
+    np.random.seed(KDR_SEED)
+    t0 = time.perf_counter()
+    with forbid_cholesky_ex_on_cuda():
+        mgp = mogp_tpu_torch.fit_GP_MAP(
+            mogp_tpu_torch.MultiOutputGP(Xr, Y, nugget="adaptive", device="cuda"),
+            n_tries=N_TRIES, maxiter=MAXITER)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = _launches(km, kb, kbl, pf)
+    n_fit = len(mgp.get_indices_fit())
+    print("phase 9a: fit_GP_MAP of {} outputs x {} restarts on the reduced inputs (n={}, D={}), "
+          "maxiter={}, float32 on {}: {} s; outputs fit {}; launches {}".format(
+              KDR_OUTPUTS, N_TRIES, KDR_N, KDR_D_ACTIVE, MAXITER, label, fit_s, n_fit,
+              fit_launches))
+    if n_fit != KDR_OUTPUTS or fit_launches["cholesky_batched"] <= 0:
+        raise AssertionError("9a: the fit on the reduced inputs left outputs unfit or did not "
+                             "launch K2")
+
+    def check(ref):
+        B64, evals64, nlp_cpu = ref
+        d_evals = float(np.max(np.abs(dr.evals - evals64)) / np.max(np.abs(evals64)))
+        P = dr.B[:, :KDR_D_ACTIVE] @ dr.B[:, :KDR_D_ACTIVE].T
+        d_proj = float(np.max(np.abs(P - B64[:, :KDR_D_ACTIVE] @ B64[:, :KDR_D_ACTIVE].T)))
+        # the CPU's fit ran on the CPU's own projection, the same inputs to
+        # d_proj: the card's winners are re-evaluated on the card's
+        gap, fit_ok = _quality(mogp_tpu_torch, Xr, Y, mgp, nlp_cpu)
+        ok = d_evals <= GKDR_TOL["evals_rel"] and d_proj <= GKDR_TOL["projector"] and fit_ok
+        print("phase 9a: vs float64 on the CPU: max |d evals| / max evals {} (limit {}), rank-3 "
+              "projector max |d| {} (limit {}); the fit's quality on the first {} outputs: mean "
+              "NLP gap {} (limit {}): {}".format(
+                  d_evals, GKDR_TOL["evals_rel"], d_proj, GKDR_TOL["projector"], N_QUALITY, gap,
+                  NLP_GAP, "ok" if ok else "FAIL"))
+        if not ok:
+            raise AssertionError("9a: the card's gKDR or its fit disagrees with float64")
+
+    return {"per_gkdr": per_gkdr, "fit": fit_launches}, check
+
+
+def phase_kdr_bench(mogp_tpu_torch, km, kb, kbl, pf, label):
+    """9b on the card (module doc): benchmark_kdr_GP.py's loss curve;
+    returns the launches and the check against float64 on the CPU."""
+    import numpy as np
+
+    _zero(km, kb, kbl, pf)
+    t0 = time.perf_counter()
+    with forbid_cholesky_ex_on_cuda():
+        losses = kdr_bench_losses(mogp_tpu_torch, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = _launches(km, kb, kbl, pf)
+    best = KDR_BENCH_KS[int(np.argmin(losses))]
+    print("phase 9b: benchmark_kdr_GP.py (N = M = {}, {} folds, K {}), gKDR float64 and the GP "
+          "fits float32 on {}: {} s; losses {}; argmin K {} (expected 1); launches {}".format(
+              KDR_BENCH_N, KDR_BENCH_FOLDS, list(KDR_BENCH_KS), label, wall, losses, best,
+              launches))
+    if (best != 1 or launches["cholesky_batched"] <= 0
+            or launches["kernel_matrix"] != 2 * KDR_BENCH_FOLDS * len(KDR_BENCH_KS)):
+        raise AssertionError("9b: the loss curve's argmin is not 1, or K1 and K2 did not launch")
+
+    def check(ref):
+        d = np.abs(np.array(losses) - np.array(ref)) / np.abs(np.array(ref))
+        ok = bool(np.all(d <= KDR_LOSS_TOL))
+        print("phase 9b: losses float64 on the CPU {}; rel d {} (limits {}): {}".format(
+            ref, d.tolist(), KDR_LOSS_TOL, "ok" if ok else "FAIL"))
+        if not ok:
+            raise AssertionError("9b: the loss curve disagrees with float64")
+
+    return launches, check
+
+
+def phase_derivs(mogp_tpu_torch, label):
+    """9c on the card (module doc): kernel_deriv and kernel_hessian of the
+    five kernels in float32; returns the check against float64 on the
+    CPU."""
+    import numpy as np
+    import torch
+    from mogp_tpu_torch.ops.kernels import get_kernel
+
+    got = {}
+    for name in KERNEL_NAMES:
+        kernel = get_kernel(name)
+        x, theta = deriv_problem(kernel)
+        xc = torch.as_tensor(x, dtype=torch.float32, device="cuda")
+        tc = torch.as_tensor(theta, dtype=torch.float32, device="cuda")
+        kernel.kernel_hessian(xc, xc, tc)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = kernel.kernel_deriv(xc, xc, tc)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        h = kernel.kernel_hessian(xc, xc, tc)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        got[name] = d.cpu().numpy(), h.cpu().numpy()
+        idx = np.arange(len(x))
+        zero_ok = bool(np.isfinite(got[name][0]).all() and np.isfinite(got[name][1]).all()
+                       and not np.any(got[name][0][:, idx, idx])
+                       and not np.any(got[name][1][:, :, idx, idx]))
+        print("phase 9c: {} at ({}, {}) with {} parameters, float32 on {}: kernel_deriv {} s, "
+              "kernel_hessian {} s; finite, and exactly 0 at zero distance: {}".format(
+                  name, len(x), len(x), len(theta), label, t1 - t0, t2 - t1, zero_ok))
+        if not zero_ok:
+            raise AssertionError("9c: {}'s derivatives are not finite, or not 0 at zero "
+                                 "distance".format(name))
+
+    def check(ref):
+        ok_all = True
+        for name in KERNEL_NAMES:
+            (d, h), (d64, h64) = got[name], ref[name]
+            e_d = float(np.max(np.abs(d - d64)) / np.max(np.abs(d64)))
+            e_h = float(np.max(np.abs(h - h64)) / np.max(np.abs(h64)))
+            ok = e_d <= DERIV_TOL[name][0] and e_h <= DERIV_TOL[name][1]
+            ok_all = ok_all and ok
+            print("phase 9c: {} vs float64 on the CPU, max |d| / max: deriv {} (limit {}), "
+                  "hessian {} (limit {}): {}".format(name, e_d, DERIV_TOL[name][0], e_h,
+                                                     DERIV_TOL[name][1], "ok" if ok else "FAIL"))
+        if not ok_all:
+            raise AssertionError("9c: the card's kernel derivatives disagree with float64")
+
+    return check
+
+
+def phase_dimred(mogp_tpu_torch, km, kb, kbl, pf, label):
+    """Phase 9 on the card (module doc): 9a-9c; returns the launches and
+    the checks against the CPU references, by part."""
+    t0 = time.perf_counter()
+    out, check_a = phase_gkdr(mogp_tpu_torch, km, kb, kbl, pf, label)
+    t1 = time.perf_counter()
+    out["9b"], check_b = phase_kdr_bench(mogp_tpu_torch, km, kb, kbl, pf, label)
+    t2 = time.perf_counter()
+    check_c = phase_derivs(mogp_tpu_torch, label)
+    print("phase 9 on the card: {} s (9a {} s, 9b {} s, 9c {} s)".format(
+        time.perf_counter() - t0, t1 - t0, t2 - t1, time.perf_counter() - t2))
+    return out, {"9a": check_a, "9b": check_b, "9c": check_c}
+
+
+def _mesh_fit(mogp_tpu_torch, km, kb, kbl, pf, mesh, keep, label, tag):
+    """10a / 10b's fit: phase 4's configuration under ``mesh``, phase 4's
+    gate; returns the launches."""
+    import numpy as np
+    import torch
+
+    x, y = make_data(N_OUTPUTS)
+    mgp = mogp_tpu_torch.MultiOutputGP(x, y, nugget="adaptive", device="cuda")
+    _zero(km, kb, kbl, pf)
+    np.random.seed(1)
+    t0 = time.perf_counter()
+    with forbid_cholesky_ex_on_cuda():
+        mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=N_TRIES, maxiter=MAXITER, mesh=mesh)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launches(km, kb, kbl, pf)
+    n_fit = len(mgp.get_indices_fit())
+    same = sum(np.array_equal(em.theta.get_data(), t)
+               for em, t in zip(mgp.emulators, keep["fit_thetas"]))
+    gap, ok = _quality(mogp_tpu_torch, x, y, mgp, keep["fit_nlp_cpu"])
+    ok = ok and n_fit == N_OUTPUTS and launches["cholesky_batched"] > 0
+    print("phase {}: fit_GP_MAP({} outputs x {} restarts, maxiter={}, mesh={}) float32 on {}: {} s; "
+          "outputs fit {}; theta bit-identical to phase 4's unsharded fit for {} of {} outputs; "
+          "phase 4's gate: mean NLP gap {} (limit {}); launches {}: {}".format(
+              tag, N_OUTPUTS, N_TRIES, MAXITER, mesh, label, fit_s, n_fit, same, N_OUTPUTS,
+              gap, NLP_GAP, launches, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("{}: the sharded fit failed phase 4's gate or did not launch "
+                             "K2".format(tag))
+    return launches
+
+
+def phase_mesh(mogp_tpu_torch, km, kb, kbl, pf, label, keep):
+    """Phase 10 (module doc): 10a a mesh of the card, 10b four shards of it;
+    returns the launches of each path."""
+    import numpy as np
+    import torch
+    from mogp_tpu_torch.parallel import DeviceMesh, auto_mesh
+
+    t_phase = time.perf_counter()
+    out = {}
+    mesh = auto_mesh()
+    if mesh.shape != {"outputs": 1} or mesh.devices != [torch.device("cuda", 0)]:
+        raise AssertionError("auto_mesh() on one card is {}".format(mesh))
+    out["10a_fit"] = _mesh_fit(mogp_tpu_torch, km, kb, kbl, pf, mesh, keep, label, "10a")
+
+    mesh = DeviceMesh([torch.device("cuda:0")] * MESH_SHARDS)
+    if mesh.threaded:
+        raise AssertionError("one card named {} times must run its shards in turn".format(
+            MESH_SHARDS))
+    out["10b_fit"] = _mesh_fit(mogp_tpu_torch, km, kb, kbl, pf, mesh, keep, label, "10b")
+
+    # the sweep over phase 6's 10^7 coords
+    sw = keep["sweep"]
+    hm = mogp_tpu_torch.HistoryMatching(gp=sw["mgp"], obs=sw["obs"], coords=sw["coords"],
+                                        mesh=mesh)
+    _zero(km, kb, kbl, pf)
+    t0 = time.perf_counter()
+    I = hm.get_implausibility(0.0, 1)
+    wall = time.perf_counter() - t0
+    out["10b_sweep"] = launches = _launches(km, kb, kbl, pf)
+    d_I = float(np.max(np.abs(I - sw["I"]) / sw["I"]))
+    same_nroy = np.array_equal(np.asarray(hm.get_NROY(), dtype=np.int64), sw["nroy"])
+    ok = (d_I <= MESH_RTOL and same_nroy and launches["predict_fused"] > 0
+          and launches["kernel_matrix"] == 0)
+    print("phase 10b: HistoryMatching sweep of {} coords over {}: {} s; vs phase 6's unsharded I: "
+          "max rel d {} (limit {}), bit-identical {}, the same NROY set ({} points) {}; launches "
+          "{}: {}".format(N_SWEEP, mesh, wall, d_I, MESH_RTOL, bool(np.array_equal(I, sw["I"])),
+                          len(sw["nroy"]), same_nroy, launches, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("10b: the sharded sweep disagrees with the unsharded one")
+
+    # SMC at 7f's configuration and seed
+    smc = keep["smc"]
+    _zero(km, kb, kbl, pf)
+    t0 = time.perf_counter()
+    res = mogp_tpu_torch.smc_history_match(smc["mgp"], seed=smc["seed"], mesh=mesh, **smc["kw"])
+    wall = time.perf_counter() - t0
+    out["10b_smc"] = launches = _launches(km, kb, kbl, pf)
+    ref = smc["res"]
+    d_p = float(np.max(np.abs(res.particles - ref.particles)) / np.max(np.abs(ref.particles)))
+    d_I = float(np.max(np.abs(res.implausibility - ref.implausibility) / ref.implausibility))
+    ok = d_p <= MESH_RTOL and d_I <= MESH_RTOL and launches["predict_fused"] > 0
+    print("phase 10b: smc_history_match ({} particles, {} stages) over {}: {} s; vs 7f's unsharded "
+          "run: particles max |d| / max {} , I max rel d {} (limit {}); bit-identical particles "
+          "{}; launches {}: {}".format(
+              SMC_PARTICLES, SMC_STAGES, mesh, wall, d_p, d_I, MESH_RTOL,
+              bool(np.array_equal(res.particles, ref.particles)), launches,
+              "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("10b: sharded SMC disagrees with the unsharded run")
+
+    # NUTS: 8 chains, unsharded and over the mesh
+    gp = keep["nuts_gp"]
+    kw = dict(n_chains=NUTS_MESH_CHAINS, n_samples=NUTS_MESH_ITERS, n_warmup=NUTS_MESH_ITERS,
+              seed=NUTS_MESH_SEED, max_depth=NUTS_MESH_DEPTH, theta0=gp.theta.get_data())
+    t0 = time.perf_counter()
+    ref = mogp_tpu_torch.sample_GP_MCMC(gp, **kw)
+    t1 = time.perf_counter()
+    _zero(km, kb, kbl, pf)
+    res = mogp_tpu_torch.sample_GP_MCMC(gp, mesh=mesh, **kw)
+    t2 = time.perf_counter()
+    out["10b_nuts"] = launches = _launches(km, kb, kbl, pf)
+    s, s0 = res.samples, ref.samples
+    mean, mean0 = s.mean(axis=(0, 1)), s0.mean(axis=(0, 1))
+    sd = np.sqrt(0.5 * (s.reshape(-1, s.shape[-1]).var(axis=0)
+                        + s0.reshape(-1, s0.shape[-1]).var(axis=0)))
+    mcse = sd * np.sqrt(1.0 / np.maximum(res.ess, 1.0) + 1.0 / np.maximum(ref.ess, 1.0))
+    z = np.abs(mean - mean0) / mcse
+    same = [bool(np.array_equal(s[c], s0[c])) for c in range(NUTS_MESH_CHAINS)]
+    ok = (bool(np.isfinite(s).all()) and float(z.max()) <= NUTS_MESH_MCSE
+          and launches["cholesky_batched"] > 0)
+    print("phase 10b: sample_GP_MCMC {} chains x ({} + {}), max_depth {}, over {}: {} s "
+          "(unsharded {} s); chains bit-identical to the unsharded run {} of {}; max |d sample| "
+          "{}; pooled means' |d| / combined MCSE max {} (limit {}); launches {}: {}".format(
+              NUTS_MESH_CHAINS, NUTS_MESH_ITERS, NUTS_MESH_ITERS, NUTS_MESH_DEPTH, mesh, t2 - t1,
+              t1 - t0, sum(same), NUTS_MESH_CHAINS, float(np.max(np.abs(s - s0))),
+              float(z.max()), NUTS_MESH_MCSE, launches, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("10b: sharded NUTS chains are not finite or disagree with the "
+                             "unsharded run")
+
+    # MICE: 2 steps of 8a, the candidate blocks split over the mesh
+    md = mice_device_design(mogp_tpu_torch, device="cuda", mesh=mesh)
+    _zero(km, kb, kbl, pf)
+    t0 = time.perf_counter()
+    with forbid_cholesky_ex_on_cuda():
+        for _ in range(MICE_MESH_STEPS):
+            md.run_next_point()
+    wall = time.perf_counter() - t0
+    out["10b_mice"] = launches = _launches(km, kb, kbl, pf)
+    chosen = md.inputs[MICE_INIT:MICE_INIT + MICE_MESH_STEPS]
+    ref = keep["mice_inputs"][MICE_INIT:MICE_INIT + MICE_MESH_STEPS]
+    route = kb.route(MICE_BLOCK, torch.float32)
+    route = "cholesky_batched" if route == "k2" else "cholesky_blocked_" + route
+    ok = (np.array_equal(chosen, ref) and launches["kernel_matrix"] > 0
+          and launches["predict_fused"] > 0 and launches[route] > 0)
+    print("phase 10b: DeviceMICEDesign, {} steps of 8a over {} ({} blocks padded to {}): {} s; "
+          "chose {}, 8a's unsharded steps {}; launches {}: {}".format(
+              MICE_MESH_STEPS, mesh, -(-MICE_CAND // MICE_BLOCK), md._n_cand_pad // MICE_BLOCK,
+              wall, chosen.tolist(), ref.tolist(), launches, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("10b: sharded MICE chose other points, or a kernel did not launch")
+    print("phase 10: {} s; one card, so no speedup from several cards is measured".format(
+        time.perf_counter() - t_phase))
+    return out
 
 
 def main():
@@ -2269,23 +2826,47 @@ def main():
     fused_shape = (N_OUTPUTS, N_POINTS, tile, N_DIM)
     tile = _predict_tile_size(LARGE_N_QUERIES, None, n_train=LARGE_N) or LARGE_N_QUERIES
     k1_shape = (1, LARGE_N, tile, LARGE_N_DIM)
+    keep = {}  # what phases 4-8 hand on to phase 10
     record = phase_kernels(km, k1_shape)
     fused_record = phase_fused(pf, km, fused_shape)
     chol_record = phase_cholesky(kb)
     blocked_records = phase_blocked(kbl)
     fused_record["launches"] = phase_slice(mogp_tpu_torch, km, kb, pf, smi)
-    chol_record["launches"], mgp = phase_fit(mogp_tpu_torch, km, kb, smi)
+    chol_record["launches"], mgp = phase_fit(mogp_tpu_torch, km, kb, smi, keep)
     route, blocked_launches, record["launches"] = phase_large_n(
         mogp_tpu_torch, km, kb, kbl, pf, smi)
     for rec, v in zip(blocked_records, kbl.VARIANTS):
         rec["launches"] = blocked_launches[v]
         rec["routed"] = v == route
-    phase_uq(mogp_tpu_torch, km, kb, pf, smi)
+    phase_uq(mogp_tpu_torch, km, kb, pf, smi, keep)
     chol_record["launches_per_leapfrog"], fused_record["launches_per_smc_stage"] = \
-        phase_inference(mogp_tpu_torch, km, kb, pf, mgp, smi)
-    mice = phase_mice(mogp_tpu_torch, km, kb, kbl, pf, smi)["launches_per_step"]
+        phase_inference(mogp_tpu_torch, km, kb, pf, mgp, smi, keep)
+    mice = phase_mice(mogp_tpu_torch, km, kb, kbl, pf, smi, keep)["launches_per_step"]
     for rec in (record, fused_record, chol_record, *blocked_records):
         rec["launches_per_mice_step"] = mice[rec["name"]]
+
+    # phases 9 and 10; phase 9's float64 CPU references run meanwhile in
+    # worker processes, and its checks against them come last
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=3,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        refs = cpu_references(pool)
+        dimred, checks = phase_dimred(mogp_tpu_torch, km, kb, kbl, pf, smi)
+        mesh = phase_mesh(mogp_tpu_torch, km, kb, kbl, pf, smi, keep)
+        t1 = time.perf_counter()
+        for part in ("9a", "9b", "9c"):
+            checks[part](refs[part].result())
+    print("phases 9 and 10: {} s, {} s of it waiting for the CPU references".format(
+        time.perf_counter() - t0, time.perf_counter() - t1))
+    for rec in (record, fused_record, chol_record, *blocked_records):
+        name = rec["name"]
+        rec["launches_per_gkdr"] = dimred["per_gkdr"][name]
+        rec["launches_in_gkdr_fit"] = dimred["fit"][name]
+        rec["launches_in_kdr_bench"] = dimred["9b"][name]
+        rec["launches_under_mesh"] = {path: counts[name] for path, counts in mesh.items()}
 
     print(json.dumps({"kernels": [record, fused_record, chol_record, *blocked_records]}))
     print(smi)

@@ -20,8 +20,11 @@ hyperparameters: batched NUTS (``sample_GP_MCMC``, ``sample_MOGP_MCMC``),
 ``fit_GP_VI``, ``predict_MCMC`` and SMC history matching
 (``smc_history_match``), with their checkpoints, and sequential design
 (``SequentialDesign``, ``MICEDesign``, ``MICEFastGP`` and the fixed-shape
-``DeviceMICEDesign``).  gKDR, the kernel derivatives and the multi-device
-layer come later.
+``DeviceMICEDesign``), gKDR (``gKDR``), the kernel derivatives
+(``KernelBase.kernel_deriv`` / ``kernel_hessian``) and the multi-device
+layer (``parallel``: ``DeviceMesh``, ``auto_mesh`` and the ``mesh=``
+argument of ``fit_GP_MAP``, ``HistoryMatching``, ``sample_GP_MCMC``,
+``sample_MOGP_MCMC``, ``smc_history_match`` and ``DeviceMICEDesign``).
 """
 
 __version__ = "0.1.0"
@@ -46,6 +49,7 @@ from .models.priors import (
     WeakPrior,
 )
 from .uq import validation
+from .uq.dimension_reduction import gKDR
 from .uq.experimental_design import (
     ExperimentalDesign,
     LatinHypercubeDesign,
@@ -68,6 +72,7 @@ __all__ = [
     "MICEDesign",
     "MICEFastGP",
     "DeviceMICEDesign",
+    "gKDR",
     "validation",
     "MeanFunction",
     "Kernel",

@@ -22,7 +22,7 @@ versions of the kernels: a CUDA tensor gets the CUDA kernel or an error.
 
 import torch
 
-__all__ = ["default_dtype", "refuse_mesh", "resolve_device"]
+__all__ = ["default_dtype", "resolve_device"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -48,14 +48,3 @@ def resolve_device(device=None):
 def default_dtype(device=None):
     """float32 on CUDA (the default device), float64 on the CPU."""
     return torch.float32 if resolve_device(device).type == "cuda" else torch.float64
-
-
-def refuse_mesh(mesh, what):
-    """Raise ``NotImplementedError`` for a ``mesh=`` argument other than
-    ``None``: the multi-device layer is not ported (ROADMAP A9), and a
-    request to shard is refused rather than run on one device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "{}(mesh=...) is not ported to mogp_tpu_torch yet (ROADMAP A9, "
-            "multi-device); pass mesh=None".format(what)
-        )

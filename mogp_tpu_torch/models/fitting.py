@@ -17,6 +17,12 @@ together.  The schedule is the JAX package's:
 * the winner of each output is refit with the full ladder by the batched
   ``gp_fit`` (``MultiOutputGP._fit_lanes``).
 
+With ``mesh=`` (a ``parallel.DeviceMesh``) every stage, the rescue and the
+refit split each chunk's outputs over the mesh, whole outputs per shard
+(an output's restarts stay together); the starts are drawn on the host
+before the split, and a lane does not depend on the others, so the
+per-output results do not depend on the mesh.
+
 Failure semantics match the reference: restarts with a non-finite
 objective are dropped; an output with no finite restart is left unfit
 (``theta`` is ``None``, ``get_indices_not_fit`` lists it), and a single
@@ -29,8 +35,8 @@ import warnings
 import numpy as np
 import torch
 
-from ..config import refuse_mesh
 from ..ops.lbfgs import lbfgs_minimize
+from ..parallel.mesh import check_mesh, map_shards, split_rows, to_device
 from .gp import GaussianProcess, GaussianProcessBase, cat_lanes, gp_nlp, take_lanes
 from .mogp import MultiOutputGP
 
@@ -184,31 +190,53 @@ def _fit_single_GP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", **kwargs)
     return gp
 
 
-def _run_fit_chunked(ems, starts, maxiter, gtol, ftol, ladder):
+def _minimize_outputs(ems, starts, maxiter, gtol, ftol, ladder, device):
+    """One batched minimization of the outputs ``ems`` from ``starts``
+    ``(g, T, P)`` on ``device``; returns ``(fun (g, T), xs (g, T, P))``."""
+    g, T, P = starts.shape
+    em0 = ems[0]
+    data = to_device(cat_lanes([em._data for em in ems]), device)
+    lanes = torch.arange(g, device=device).repeat_interleave(T)
+    res = _minimize(torch.as_tensor(starts.reshape(-1, P), dtype=em0._dtype, device=device),
+                    take_lanes(data, lanes), em0.kernel, em0.nugget_type, maxiter, gtol, ftol,
+                    ladder)
+    return _host(res.fun).reshape(-1, T), _host(res.x).reshape(-1, T, P)
+
+
+def _run_fit_chunked(ems, starts, maxiter, gtol, ftol, ladder, mesh=None):
     """Minimize from ``starts`` ``(G, T, P)`` for the outputs ``ems`` (one
-    signature group), in chunks of whole outputs under the memory budget.
+    signature group), in chunks of whole outputs under the memory budget of
+    each device; with ``mesh``, a chunk's outputs are split over the mesh.
 
     :returns: ``(fun (G, T), xs (G, T, P))`` float64 numpy arrays.
     """
     G, T, P = starts.shape
     em0 = ems[0]
-    per_chunk = max(1, _max_lanes(em0) // T)
+    n_dev = 1 if mesh is None else mesh.shape[mesh.axis_names[0]]
+    per_chunk = max(1, _max_lanes(em0) // T) * n_dev
     fun = np.empty((G, T))
     xs = np.empty((G, T, P))
     for c0 in range(0, G, per_chunk):
-        sel = slice(c0, min(c0 + per_chunk, G))
-        data = cat_lanes([em._data for em in ems[sel]])
-        lanes = torch.arange(sel.stop - sel.start, device=data.inputs.device).repeat_interleave(T)
-        res = _minimize(em0._tensor(starts[sel].reshape(-1, P)), take_lanes(data, lanes),
-                        em0.kernel, em0.nugget_type, maxiter, gtol, ftol, ladder)
-        fun[sel] = _host(res.fun).reshape(-1, T)
-        xs[sel] = _host(res.x).reshape(-1, T, P)
+        c1 = min(c0 + per_chunk, G)
+        if mesh is None:
+            fun[c0:c1], xs[c0:c1] = _minimize_outputs(ems[c0:c1], starts[c0:c1], maxiter, gtol,
+                                                      ftol, ladder, em0._device)
+            continue
+        parts = [slice(c0 + p.start, c0 + p.stop) for p in split_rows(c1 - c0, n_dev)]
+        results = map_shards(
+            mesh, lambda k, d: _minimize_outputs(ems[parts[k]], starts[parts[k]], maxiter,
+                                                 gtol, ftol, ladder, d),
+            n_items=len(parts),
+        )
+        for part, (f, x) in zip(parts, results):
+            fun[part], xs[part] = f, x
     return fun, xs
 
 
-def _fit_MOGP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", refit=False, **kwargs):
+def _fit_MOGP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", refit=False, mesh=None,
+                  **kwargs):
     """Fit the outputs of a MultiOutputGP, one batched schedule per
-    signature group."""
+    signature group, split over ``mesh`` when it is given."""
     assert isinstance(gp, MultiOutputGP)
     n_tries = int(n_tries)
     assert n_tries > 0, "n_tries must be a positive integer"
@@ -252,7 +280,7 @@ def _fit_MOGP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", refit=False, *
         plan = _race_plan(n_tries, maxiter, race) or [(maxiter, None)]
         cur = starts
         for stage, (iters, keep) in enumerate(plan):
-            fun, xs = _run_fit_chunked(ems, cur, iters, gtol, ftol, ladder)
+            fun, xs = _run_fit_chunked(ems, cur, iters, gtol, ftol, ladder, mesh)
             mark("stage{}".format(stage))
             if keep is not None:
                 # the best `keep` restarts of each output run on;
@@ -266,7 +294,7 @@ def _fit_MOGP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", refit=False, *
         rescue = {}
         if failed and em0.nugget_type == "adaptive" and ladder is not False:
             fun_f, xs_f = _run_fit_chunked([ems[r] for r in failed], starts[failed],
-                                           maxiter, gtol, ftol, False)
+                                           maxiter, gtol, ftol, False, mesh)
             for j, r in enumerate(failed):
                 idx = _best(fun_f[j])
                 if idx is not None:
@@ -285,13 +313,18 @@ def _fit_MOGP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", refit=False, *
                 continue
             fit_rows.append(global_idx[row])
         # the winners' artifacts, with the full ladder, in batched gp_fit calls
-        gp._fit_lanes(fit_rows, best_raw)
+        if mesh is None:
+            gp._fit_lanes(fit_rows, best_raw)
+        else:
+            parts = split_rows(len(fit_rows), mesh.shape[mesh.axis_names[0]])
+            map_shards(mesh, lambda k, d: gp._fit_lanes(fit_rows[parts[k]], best_raw[parts[k]],
+                                                        device=d), n_items=len(parts))
         mark("refit")
     return gp
 
 
 def fit_GP_MAP(*args, n_tries=15, theta0=None, method="L-BFGS-B", skip_failures=True,
-               refit=False, **kwargs):
+               refit=False, mesh=None, **kwargs):
     """Fit one or more GPs by minimizing the negative log posterior.
 
     Takes a ``GaussianProcess`` or ``MultiOutputGP``, or the arguments of
@@ -309,14 +342,21 @@ def fit_GP_MAP(*args, n_tries=15, theta0=None, method="L-BFGS-B", skip_failures=
     A ``MultiOutputGP`` with ``refit=False`` fits only the outputs not fit
     yet.  Outputs that cannot be fit are reported (``skip_failures``) or
     raise ``RuntimeError``; a single GP that cannot be fit raises.
-    ``mesh`` other than ``None`` raises ``NotImplementedError`` (ROADMAP A9).
+
+    ``mesh`` (a ``parallel.DeviceMesh``; anything else raises
+    ``TypeError``) splits a ``MultiOutputGP``'s outputs over its devices
+    (see the module doc); a single GP ignores it with a warning, as in
+    ``mogp_tpu``.
     """
-    refuse_mesh(kwargs.pop("mesh", None), "fit_GP_MAP")
+    check_mesh(mesh)
     if len(args) == 1:
         gp = args[0]
         if isinstance(gp, MultiOutputGP):
-            gp = _fit_MOGP_MAP(gp, n_tries, theta0, method, refit, **kwargs)
+            gp = _fit_MOGP_MAP(gp, n_tries, theta0, method, refit, mesh, **kwargs)
         elif isinstance(gp, GaussianProcessBase):
+            if mesh is not None:
+                warnings.warn("mesh sharding applies to MultiOutputGP fits; ignoring mesh "
+                              "for a single GP")
             gp = _fit_single_GP_MAP(gp, n_tries, theta0, method, **kwargs)
         else:
             raise TypeError(
@@ -332,7 +372,7 @@ def fit_GP_MAP(*args, n_tries=15, theta0=None, method="L-BFGS-B", skip_failures=
         except AssertionError:
             try:
                 gp = MultiOutputGP(*args, **gp_kwargs)
-                gp = _fit_MOGP_MAP(gp, n_tries, theta0, method, refit, **kwargs)
+                gp = _fit_MOGP_MAP(gp, n_tries, theta0, method, refit, mesh, **kwargs)
             except AssertionError:
                 raise ValueError("Bad values for *args in fit_GP_MAP")
 

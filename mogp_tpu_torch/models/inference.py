@@ -18,17 +18,24 @@ data-dependent ladder would make the density discontinuous in raw space):
 Every entry point runs where its emulator lives (the card unless the
 emulator was built with ``device="cpu"``).  Samples, step sizes and the
 variational parameters are float64; the potential is evaluated in the
-emulator's type.  ``mesh=`` other than ``None`` raises (ROADMAP A9).
+emulator's type.
+
+``mesh=`` (a ``parallel.DeviceMesh``) splits the chains of
+``sample_GP_MCMC``, and the outputs of each ``sample_MOGP_MCMC`` group that
+the mesh divides, over its devices.  A chain's start is drawn before the
+split and its Philox stream is keyed by its global (output, chain) index,
+so it draws the same numbers wherever it runs.
 """
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..config import refuse_mesh
 from ..ops import cholesky_batched as kb
 from ..ops import hmc
+from ..parallel.mesh import check_mesh, map_shards, split_rows, to_device
 from ..utils import checkpoint as _ckpt
 from .fitting import _LADDER_MODES
 from .gp import GaussianProcess, _query_tile, cat_lanes, gp_fit, gp_nlp, gp_predict, \
@@ -156,6 +163,13 @@ def _eager_potential(data, kernel, nugget_type):
     return pg
 
 
+# one CUDA graph capture at a time in the process: the shards of a mesh of
+# several cards capture from threads of their own, and a capture's set-up
+# (a synchronize, the allocator's cache emptied, the device's random-number
+# generator registered with the graph) must not meet another capture
+_capture_lock = threading.Lock()
+
+
 class _GraphedPotential:
     """The potential on the card, captured once into a CUDA graph and
     replayed for every evaluation.
@@ -182,6 +196,10 @@ class _GraphedPotential:
         return self._u.clone(), self._g.clone()
 
     def _capture(self, q):
+        with _capture_lock:
+            self._capture_locked(q)
+
+    def _capture_locked(self, q):
         self._q = q.detach().clone()
         side = torch.cuda.Stream(device=q.device)
         side.wait_stream(torch.cuda.current_stream(q.device))
@@ -190,10 +208,13 @@ class _GraphedPotential:
                 self._eager(self._q)
         torch.cuda.current_stream(q.device).wait_stream(side)
         self._graph = torch.cuda.CUDAGraph()
-        before = kb.recorded
-        with torch.cuda.graph(self._graph):
+        before = kb.recorded_here()
+        # on a stream of q's device: torch.cuda.graph's default capture
+        # stream is one for the process, made on the device of its first
+        # use; thread_local: the other shards' threads allocate meanwhile
+        with torch.cuda.graph(self._graph, stream=side, capture_error_mode="thread_local"):
             self._u, self._g = self._eager(self._q)
-        self._k2 = kb.recorded - before
+        self._k2 = kb.recorded_here() - before
 
 
 def gp_potential(data, kernel, nugget_type):
@@ -347,6 +368,28 @@ def _run_nuts_chains(data, q0, chains, outputs, seed, kernel, nugget_type, n_war
     return samples, infos
 
 
+def _run_sharded(mesh, data, q0, chains, outputs, seed, kernel, nugget_type, n_warmup,
+                 n_samples, max_depth, target_accept, segment, checkpoint_path, parts):
+    """:func:`_run_nuts_chains` over the lane ranges ``parts`` (slices of
+    ``q0``'s rows), one per shard of ``mesh`` on its device; shard ``k``
+    checkpoints to ``"{checkpoint_path}.shard{k}"``.  The results are
+    concatenated in lane order."""
+    def shard(k, device):
+        lanes = parts[k]
+        ckpt = None if checkpoint_path is None else "{}.shard{}".format(checkpoint_path, k)
+        return _run_nuts_chains(
+            to_device(take_lanes(data, lanes), device), q0[lanes].to(device),
+            chains[lanes].to(device), outputs[lanes].to(device), seed, kernel, nugget_type,
+            n_warmup, n_samples, max_depth, target_accept, segment=segment,
+            checkpoint_path=ckpt,
+        )
+
+    results = map_shards(mesh, shard, n_items=len(parts))
+    samples = np.concatenate([r[0] for r in results], axis=0)
+    infos = [np.concatenate(x, axis=0) for x in zip(*[r[1] for r in results])]
+    return samples, infos
+
+
 def _result(samples, infos):
     s = torch.as_tensor(samples)
     return MCMCResult(
@@ -381,21 +424,26 @@ def sample_GP_MCMC(
     with ``checkpoint_path`` the chains' state is saved after every
     segment, a run started again resumes from the last one (an
     extension-less path included), and the file is removed on completion.
-    ``mesh`` other than ``None`` raises ``NotImplementedError``.
+    ``mesh`` splits the chains over its devices in consecutive shares
+    (shard ``k`` checkpoints to ``"{checkpoint_path}.shard{k}"``).
 
     :returns: ``MCMCResult`` with raw-space samples and diagnostics.
     """
-    refuse_mesh(mesh, "sample_GP_MCMC")
+    check_mesh(mesh)
     device = gp._device
     centers = None if theta0 is None else [np.asarray(theta0, dtype=np.float64)]
     q0 = _chain_starts(device, seed, [0], n_chains, centers=centers, priors=gp.priors)
     data = take_lanes(gp._data, torch.zeros(n_chains, dtype=torch.int64, device=device))
-    samples, infos = _run_nuts_chains(
-        data, q0, torch.arange(n_chains, device=device),
-        torch.zeros(n_chains, dtype=torch.int64, device=device), seed, gp.kernel,
-        gp.nugget_type, n_warmup, n_samples, max_depth, target_accept, segment=segment,
-        checkpoint_path=checkpoint_path,
-    )
+    args = (data, q0, torch.arange(n_chains, device=device),
+            torch.zeros(n_chains, dtype=torch.int64, device=device), seed, gp.kernel,
+            gp.nugget_type, n_warmup, n_samples, max_depth, target_accept)
+    if mesh is None:
+        samples, infos = _run_nuts_chains(*args, segment=segment,
+                                          checkpoint_path=checkpoint_path)
+    else:
+        samples, infos = _run_sharded(
+            mesh, *args, segment, checkpoint_path,
+            split_rows(n_chains, mesh.shape[mesh.axis_names[0]]))
     return _result(samples, infos)
 
 
@@ -417,13 +465,17 @@ def sample_MOGP_MCMC(
     posteriors for a tsunami-scale emulator").  Chains start at each
     output's MAP fit + 0.5 N(0, 1); chain ``c`` of output ``i`` depends
     only on ``(seed, i, c)``.  With ``checkpoint_path``, group ``g``
-    checkpoints to ``"{checkpoint_path}.group{g}"``.
+    checkpoints to ``"{checkpoint_path}.group{g}"``.  ``mesh`` splits the
+    outputs of each group whose size its first axis divides over its
+    devices, whole outputs (with their chains) per shard, each shard
+    checkpointing to ``".shard{k}"`` after the group's path; another group
+    runs whole on the emulators' device.
 
     :returns: list of per-output ``MCMCResult``.
     """
     from .mogp import MultiOutputGP
 
-    refuse_mesh(mesh, "sample_MOGP_MCMC")
+    check_mesh(mesh)
     assert isinstance(mgp, MultiOutputGP)
     assert mgp.get_indices_not_fit() == [], (
         "MAP-fit all outputs first (fit_GP_MAP) to initialize chains"
@@ -440,12 +492,16 @@ def sample_MOGP_MCMC(
         q0 = _chain_starts(device, seed, rel, n_chains,
                            centers=[em.theta.get_data() for em in ems])
         ckpt_g = None if checkpoint_path is None else "{}.group{}".format(checkpoint_path, g_idx)
-        samples, infos = _run_nuts_chains(
-            data, q0, torch.arange(n_chains, device=device).repeat(G),
-            torch.as_tensor(rel, device=device).repeat_interleave(n_chains), seed, em0.kernel,
-            em0.nugget_type, n_warmup, n_samples, max_depth, target_accept, segment=segment,
-            checkpoint_path=ckpt_g,
-        )
+        args = (data, q0, torch.arange(n_chains, device=device).repeat(G),
+                torch.as_tensor(rel, device=device).repeat_interleave(n_chains), seed, em0.kernel,
+                em0.nugget_type, n_warmup, n_samples, max_depth, target_accept)
+        n_dev = 1 if mesh is None else mesh.shape[mesh.axis_names[0]]
+        if mesh is None or G % n_dev:
+            samples, infos = _run_nuts_chains(*args, segment=segment, checkpoint_path=ckpt_g)
+        else:
+            per = G // n_dev * n_chains
+            samples, infos = _run_sharded(mesh, *args, segment, ckpt_g,
+                                          [slice(k * per, (k + 1) * per) for k in range(n_dev)])
         samples = samples.reshape((G, n_chains) + samples.shape[1:])
         infos = [x.reshape((G, n_chains) + x.shape[1:]) for x in infos]
         for j, i in enumerate(rel):

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels import KernelBase
+from ..parallel.mesh import to_device
 from .gp import (
     GaussianProcess,
     PredictResult,
@@ -300,12 +301,14 @@ class MultiOutputGP(MultiOutputGPBase):
         )
 
     def _predict_groups(self, testing, indices, unc=True, include_nugget=True, full_cov=False,
-                        max_batch_size=None):
+                        max_batch_size=None, device=None):
         """The one assembly of a prediction of the fitted emulators
-        ``indices`` at ``testing`` (2D float64 numpy, or a tensor on the
-        emulators' device, whose design matrix is then built there by
-        ``design_matrix_fn``), for :meth:`predict`, ``HistoryMatching``'s
-        device sweep and SMC's implausibility.  Per signature group it
+        ``indices`` at ``testing`` (2D float64 numpy, or a tensor, whose
+        design matrix is then built on the device by ``design_matrix_fn``),
+        for :meth:`predict`, ``HistoryMatching``'s device sweep, SMC's
+        implausibility and the sharded prediction (``parallel/``), on
+        ``device`` (default the emulators'; the training data and the
+        artifacts are copied there).  Per signature group it
         yields ``(rows, tiles, scale, shift)``:
 
         * ``rows``: the group's emulator indices;
@@ -323,16 +326,19 @@ class MultiOutputGP(MultiOutputGPBase):
             rows = [indices[i] for i in group]
             ems = [self.emulators[i] for i in rows]
             em0 = ems[0]
-            data = cat_lanes([em._data for em in ems])
+            dev = em0._device if device is None else device
+            data = to_device(cat_lanes([em._data for em in ems]), dev)
             tile = 0 if full_cov else _query_tile(testing.shape[0], max_batch_size, data,
                                                   em0.kernel, em0.nugget_type)
             if isinstance(testing, torch.Tensor):
-                x = testing.to(em0._device, em0._dtype)
+                x = testing.to(dev, em0._dtype)
                 dm = design_matrix_fn(em0._mean, em0._mean_state)(x)
             else:
-                x, dm = em0._tensor(testing), em0._tensor(em0.get_design_matrix(testing))
+                x = torch.as_tensor(testing, dtype=em0._dtype, device=dev)
+                dm = torch.as_tensor(em0.get_design_matrix(testing), dtype=em0._dtype,
+                                     device=dev)
             tiles = _group_tiles(
-                cat_lanes([em._artifacts for em in ems]), data, x, dm, em0.kernel,
+                to_device(cat_lanes([em._artifacts for em in ems]), dev), data, x, dm, em0.kernel,
                 em0.nugget_type, tile, unc=bool(unc), include_nugget=bool(include_nugget),
                 full_cov=bool(full_cov),
             )
@@ -355,12 +361,13 @@ class MultiOutputGP(MultiOutputGPBase):
         assert len(thetas) == self.n_emulators, "need one theta per emulator"
         self._fit_lanes(range(self.n_emulators), thetas)
 
-    def _fit_lanes(self, indices, thetas):
+    def _fit_lanes(self, indices, thetas, device=None):
         """Fit emulators ``indices`` at ``thetas`` (same order): per
         signature group, batched ``gp_fit`` calls of at most
         ``fitting._max_lanes`` lanes each (the device-memory budget), one
-        host transfer per call.  This is the one path of ``fit``,
-        ``load_mogp`` and the MAP refit.  At n >=
+        host transfer per call, on ``device`` (default the emulators'; the
+        artifacts are put back on each emulator's device).  This is the one
+        path of ``fit``, ``load_mogp`` and the MAP refit.  At n >=
         ``PROGRESSIVE_LADDER_MIN_N`` the jitter ladder is progressive, so
         each lane stops at the rung a single ``GaussianProcess.fit`` stops
         at; below it every rung is factored at once."""
@@ -374,16 +381,18 @@ class MultiOutputGP(MultiOutputGPBase):
                 chunk_ems = [ems[i] for i in chunk]
                 raws = [em._coerce_theta(thetas[i]) for em, i in zip(chunk_ems, chunk)]
                 em0 = chunk_ems[0]
+                dev = em0._device if device is None else device
                 arts = gp_fit(
-                    em0._tensor(np.stack(raws)),
-                    cat_lanes([em._data for em in chunk_ems]),
+                    torch.as_tensor(np.stack(raws), dtype=em0._dtype, device=dev),
+                    to_device(cat_lanes([em._data for em in chunk_ems]), dev),
                     em0.kernel,
                     em0.nugget_type,
                 )
                 summary = _host_summary(arts)
                 for lane, (em, raw) in enumerate(zip(chunk_ems, raws)):
                     em._set_fit_artifacts(
-                        raw, take_lanes(arts, slice(lane, lane + 1)), summary[lane]
+                        raw, to_device(take_lanes(arts, slice(lane, lane + 1)), em._device),
+                        summary[lane],
                     )
 
     def fit_emulator(self, index, theta):

@@ -23,10 +23,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
-__all__ = ["library", "KernelError", "NVCC_FLAGS"]
+__all__ = ["library", "KernelError", "NVCC_FLAGS", "count_lock"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -38,6 +39,11 @@ NVCC_FLAGS = (
 )
 
 _lib = None
+_lib_lock = threading.Lock()
+
+# guards every wrapper's launch counter: shards of a mesh of several cards
+# launch from threads of their own (parallel/mesh.py::map_shards)
+count_lock = threading.Lock()
 
 
 class KernelError(RuntimeError):
@@ -105,27 +111,32 @@ def _build(path):
 def library():
     """The loaded kernel library, built first if it is not on disk."""
     global _lib
-    if _lib is None:
-        path = _library_path()
-        if not path.exists():
-            _build(path)
-        lib = ctypes.CDLL(str(path))
-        fn = lib.mogp_kernel_matrix
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fn = lib.mogp_predict_fused
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fn = lib.mogp_predict_fused_smem
-        fn.argtypes = [ctypes.c_int] * 3
-        fn.restype = ctypes.c_longlong
-        fn = lib.mogp_cholesky_batched
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fn = lib.mogp_cholesky_blocked
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.mogp_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mogp_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    with _lib_lock:
+        if _lib is None:
+            _lib = _load()
     return _lib
+
+
+def _load():
+    path = _library_path()
+    if not path.exists():
+        _build(path)
+    lib = ctypes.CDLL(str(path))
+    fn = lib.mogp_kernel_matrix
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mogp_predict_fused
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mogp_predict_fused_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    fn = lib.mogp_cholesky_batched
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mogp_cholesky_blocked
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.mogp_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.mogp_cuda_error_string.restype = ctypes.c_char_p
+    return lib

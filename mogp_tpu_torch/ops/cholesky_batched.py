@@ -9,8 +9,11 @@ the training size, and the refit and the mean algebra go through it too.
 
 * On a CUDA tensor it launches ``csrc/cholesky_batched.cu`` (built at first
   use by ``ops/_build.py``) and adds one to :data:`launches`; under CUDA
-  graph capture it adds one to :data:`recorded` instead, and
-  :func:`replay` counts the launches of each replay.  It does not
+  graph capture it adds one to :data:`recorded` (and to the capturing
+  thread's :func:`recorded_here`) instead, and :func:`replay` counts the
+  launches of each replay.  The counts are kept under
+  ``ops/_build.py::count_lock``: the shards of a mesh of several cards
+  launch from threads of their own.  It does not
   catch build or launch errors and never falls back to the plain version.
 * On a CPU tensor it calls :func:`cholesky_batched_plain`, which is what
   the CPU tests run.
@@ -25,6 +28,7 @@ the training size, and the refit and the mean algebra go through it too.
 """
 
 import math
+import threading
 
 import torch
 
@@ -38,6 +42,7 @@ __all__ = [
     "MAX_SHARED_BYTES",
     "launches",
     "recorded",
+    "recorded_here",
     "replay",
 ]
 
@@ -46,6 +51,7 @@ launches = 0
 # calls recorded into CUDA graphs in this process: each launches K2 when
 # its graph replays, and :func:`replay` counts those launches
 recorded = 0
+_here = threading.local()
 
 # dynamic shared memory one block may opt into on Hopper (227 KB): the
 # largest packed triangle the kernel's shared-memory path holds
@@ -116,7 +122,7 @@ def cholesky_batched(A):
 
         return cholesky_blocked(A, kernel)
 
-    from ._build import KernelError, library
+    from ._build import KernelError, count_lock, library
 
     lib = library()
     out = torch.empty_like(A)
@@ -131,17 +137,29 @@ def cholesky_batched(A):
             "cholesky_batched launch failed: {}".format(lib.mogp_cuda_error_string(err).decode())
         )
     global launches, recorded
-    if capturing:
-        recorded += 1
-    else:
-        launches += 1
+    with count_lock:
+        if capturing:
+            recorded += 1
+            _here.recorded = recorded_here() + 1
+        else:
+            launches += 1
     return out
+
+
+def recorded_here():
+    """The calls the current thread has recorded into CUDA graphs: its rise
+    over one capture is that graph's ``n_recorded``, whatever other threads
+    capture meanwhile."""
+    return getattr(_here, "recorded", 0)
 
 
 def replay(graph, n_recorded):
     """Replay the CUDA graph ``graph``, into which :func:`cholesky_batched`
-    was recorded ``n_recorded`` times (the rise of :data:`recorded` over its
-    capture), and count those launches."""
+    was recorded ``n_recorded`` times (the rise of :func:`recorded_here`
+    over its capture), and count those launches."""
+    from ._build import count_lock
+
     global launches
     graph.replay()
-    launches += n_recorded
+    with count_lock:
+        launches += n_recorded

@@ -79,7 +79,7 @@ def cholesky_blocked_ex(A, variant):
     if A.device.type != "cuda":
         raise ValueError("cholesky_blocked runs on CPU or CUDA, not {}".format(A.device))
 
-    from ._build import KernelError, library
+    from ._build import KernelError, count_lock, library
 
     lib = library()
     out = torch.empty_like(A)
@@ -94,7 +94,8 @@ def cholesky_blocked_ex(A, variant):
         raise KernelError(
             "cholesky_blocked launch failed: {}".format(lib.mogp_cuda_error_string(err).decode())
         )
-    launches[variant] += 1
+    with count_lock:
+        launches[variant] += 1
     return out, status
 
 

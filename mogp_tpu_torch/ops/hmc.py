@@ -38,6 +38,7 @@ distribution, not in bits.  A non-finite potential counts as a divergence
 (``max_delta=1000``), as in JAX.
 """
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -49,6 +50,7 @@ __all__ = [
     "philox4x32",
     "seeded_generator",
     "nuts_step",
+    "nuts_kernel",
     "sample_nuts",
     "potential_and_grad",
     "nuts_warmup_init",
@@ -71,18 +73,33 @@ class Counters:
     """What the lockstep costs, over the calls since :meth:`reset`:
     ``transitions``, ``leapfrogs`` (batched potential evaluations),
     ``lane_leapfrogs`` (lanes x leapfrogs), ``useful`` (lane-leapfrogs
-    whose result a lane kept; a device tensor, read by :meth:`read`) and
-    ``syncs`` (flags read by the host)."""
+    whose result a lane kept; a device tensor per device, read by
+    :meth:`read`) and ``syncs`` (flags read by the host).  :meth:`add` takes
+    a lock: the shards of a mesh of several cards step from threads of
+    their own."""
 
     def __init__(self):
+        self._lock = threading.Lock()
         self.reset()
 
     def reset(self):
-        self.transitions = self.leapfrogs = self.lane_leapfrogs = self.syncs = 0
-        self.useful = 0
+        with self._lock:
+            self.transitions = self.leapfrogs = self.lane_leapfrogs = self.syncs = 0
+            self._useful = {}
+
+    def add(self, useful=None, **counts):
+        """Add ``counts`` to the named integer counters, and ``useful`` (a
+        device tensor) to its device's sum."""
+        with self._lock:
+            for name, n in counts.items():
+                setattr(self, name, getattr(self, name) + n)
+            if useful is not None:
+                dev = useful.device
+                self._useful[dev] = self._useful.get(dev, 0) + useful
 
     def read(self):
-        useful = int(self.useful) if isinstance(self.useful, torch.Tensor) else self.useful
+        with self._lock:
+            useful = sum(int(u) for u in self._useful.values())
         return {
             "transitions": self.transitions,
             "leapfrogs": self.leapfrogs,
@@ -337,9 +354,7 @@ def _build_subtree(pg_fn, inv_mass, step_size, depth, max_depth, direction, ener
     for i in range(2**depth):
         going = active & ~(c.turning | c.diverging)
         q, p, u, grad = _leapfrog(pg_fn, inv_mass, eps, c.q, c.p, c.grad)
-        counters.leapfrogs += 1
-        counters.lane_leapfrogs += L
-        counters.useful = counters.useful + going.sum()
+        counters.add(leapfrogs=1, lane_leapfrogs=L, useful=going.sum())
         energy = u + _kinetic(inv_mass, p)
         energy = torch.where(torch.isnan(energy), np.inf, energy)
         delta = energy - energy0
@@ -385,10 +400,10 @@ def nuts_step(pg_fn, q, u, grad, step_size, inv_mass, draws, max_depth=8, max_de
     tree = _Tree(q, p0, grad, q, p0, grad, q, grad, u, torch.zeros_like(u), p0, false, false,
                  torch.zeros_like(u), torch.zeros(L, dtype=torch.int64, device=q.device))
     active = ~false
-    counters.transitions += 1
+    counters.add(transitions=1)
     for depth in range(max_depth):
         if depth > 0:
-            counters.syncs += 1
+            counters.add(syncs=1)
             if not bool(active.any()):
                 break
         direction = torch.where(draws.direction[:, depth] < 0.5, 1.0, -1.0).to(q.dtype)
@@ -423,6 +438,24 @@ def nuts_step(pg_fn, q, u, grad, step_size, inv_mass, draws, max_depth=8, max_de
     accept_prob = tree.sum_accept / torch.clamp_min(tree.n_steps.to(q.dtype), 1.0)
     info = NUTSInfo(accept_prob, step_size, tree.n_steps, tree.diverging, tree.u_prop)
     return tree.q_prop, tree.u_prop, tree.grad_prop, info
+
+
+def nuts_kernel(potential_fn, max_depth=8, max_delta=1000.0):
+    """A NUTS transition for the batched potential ``potential_fn`` ``(L, P)
+    -> (L,)`` (``mogp_tpu/ops/hmc.py:266``): the gradient by autograd
+    (:func:`potential_and_grad`) and one :func:`nuts_step`.
+
+    Returns ``step(stream, t, q, u, grad, step_size, inv_mass) -> (q', u',
+    grad', NUTSInfo)``: the random numbers are transition ``t``'s of the
+    :class:`Stream` ``stream``, where ``mogp_tpu`` takes a JAX key.
+    """
+    pg_fn = potential_and_grad(potential_fn)
+
+    def step(stream, t, q, u, grad, step_size, inv_mass):
+        draws = _transition_draws(stream, t, q.shape[1], max_depth)
+        return nuts_step(pg_fn, q, u, grad, step_size, inv_mass, draws, max_depth, max_delta)
+
+    return step
 
 
 # ---------------------------------------------------------------------------

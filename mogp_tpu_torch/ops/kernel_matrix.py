@@ -98,7 +98,7 @@ def kernel_matrix(x1, x2, exp_theta, sigma2, base="sqexp"):
     if max(n, m, D) > _MAX_INT:
         raise ValueError("kernel_matrix sizes must fit in a 32-bit int")
 
-    from ._build import KernelError, library
+    from ._build import KernelError, count_lock, library
 
     lib = library()
     with torch.cuda.device(x1.device):
@@ -115,5 +115,6 @@ def kernel_matrix(x1, x2, exp_theta, sigma2, base="sqexp"):
             )
         )
     global launches
-    launches += 1
+    with count_lock:
+        launches += 1
     return out

@@ -13,7 +13,9 @@ zero, as in the JAX package; a training covariance's (``K(x, x)``) is
 corrected to an exact zero diagonal (:func:`squared_distance`).  Matmuls run in full float32 or float64:
 ``mogp_tpu_torch.config`` switches TF32 off when the package is imported.
 
-``kernel_deriv`` and ``kernel_hessian`` come with the MAP-fit port.
+``kernel_deriv`` and ``kernel_hessian`` differentiate :meth:`KernelBase.kernel_f`
+in forward mode (``torch.func.jacfwd``), as the JAX package does with
+``jax.jacfwd``; neither reaches a CUDA kernel.
 """
 
 import torch
@@ -177,9 +179,30 @@ class KernelBase:
             return torch.movedim(d2, -1, -3)
         return squared_distance(x1, x2, exp_theta)
 
+    def kernel_deriv(self, x1, x2, params):
+        """Gradient of the kernel matrix with respect to the raw parameters,
+        ``(P, n1, n2)`` with the parameter axis first, by forward mode.
+
+        With ``x2`` the same array as ``x1`` the diagonal's distance is an
+        exact zero (:func:`squared_distance`), so its derivative is exactly
+        0 in any type, and ``mat52``'s double ``where`` keeps it finite."""
+        x1, x2, params = self._coerce(x1, x2, params)
+        jac = torch.func.jacfwd(lambda p: self.kernel_f(x1, x2, p))(params)
+        return torch.movedim(jac, -1, 0)
+
+    def kernel_hessian(self, x1, x2, params):
+        """Hessian of the kernel matrix with respect to the raw parameters,
+        ``(P, P, n1, n2)``, by forward mode over forward mode."""
+        x1, x2, params = self._coerce(x1, x2, params)
+        hess = torch.func.jacfwd(torch.func.jacfwd(lambda p: self.kernel_f(x1, x2, p)))(params)
+        return torch.movedim(hess, (-2, -1), (0, 1))
+
     def _coerce(self, x1, x2, params):
+        # the same array twice stays one tensor: squared_distance zeroes the
+        # diagonal of a training covariance by that identity
+        same = x2 is x1
         x1 = torch.as_tensor(x1)
-        x2 = torch.as_tensor(x2, dtype=x1.dtype, device=x1.device)
+        x2 = x1 if same else torch.as_tensor(x2, dtype=x1.dtype, device=x1.device)
         params = torch.as_tensor(params, dtype=x1.dtype, device=x1.device)
         if params.ndim == 0:
             params = params.reshape(1)
@@ -188,6 +211,7 @@ class KernelBase:
                 x1 = x1.reshape(-1, 1)
             if x2.ndim == 1:
                 x2 = x2.reshape(-1, 1)
+            x2 = x1 if same else x2
             assert params.shape[-1] == 1, (
                 "Uniform kernels only support a single correlation length"
             )
@@ -197,6 +221,7 @@ class KernelBase:
                 x1 = x1.reshape(-1, 1) if D == 1 else x1.reshape(1, D)
             if x2.ndim == 1:
                 x2 = x2.reshape(-1, 1) if D == 1 else x2.reshape(1, D)
+            x2 = x1 if same else x2
             assert x1.shape[-1] == D and x2.shape[-1] == D, "bad shape for inputs"
         assert x1.shape[-1] == x2.shape[-1]
         return x1, x2, params

@@ -169,7 +169,7 @@ def predict_fused(x1, x2, exp_theta, sigma2, Lk, alpha, Kinv_dm, dmtest, beta, L
 
     import ctypes
 
-    from ._build import KernelError, library
+    from ._build import KernelError, count_lock, library
 
     lib = library()
     size = torch.finfo(x1.dtype).bits // 8
@@ -191,5 +191,6 @@ def predict_fused(x1, x2, exp_theta, sigma2, Lk, alpha, Kinv_dm, dmtest, beta, L
             "predict_fused launch failed: {}".format(lib.mogp_cuda_error_string(err).decode())
         )
     global launches
-    launches += 1
+    with count_lock:
+        launches += 1
     return mu, var

@@ -1,9 +1,10 @@
 """UQ toolchain: experimental design, history matching, SMC, validation,
-sequential design (MICE).
+sequential design (MICE), gKDR.
 
-Port of ``mogp_tpu/uq``.  gKDR is not ported yet (ROADMAP A7).
+Port of ``mogp_tpu/uq``.
 """
 
+from .dimension_reduction import gKDR, gram_matrix, gram_matrix_sqexp, median_dist
 from .experimental_design import (
     ExperimentalDesign,
     LatinHypercubeDesign,
@@ -26,6 +27,10 @@ from .validation import (
 )
 
 __all__ = [
+    "gKDR",
+    "gram_matrix",
+    "gram_matrix_sqexp",
+    "median_dist",
     "ExperimentalDesign",
     "LatinHypercubeDesign",
     "MaxiMinLHC",

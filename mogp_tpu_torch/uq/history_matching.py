@@ -14,6 +14,11 @@ selection over the groups stays ``np.partition`` there.  Below it, with
 explicit ``expectations``, unfit emulators or a single
 ``GaussianProcess``, the host path predicts and reduces in numpy.
 
+With ``mesh=`` (a ``parallel.DeviceMesh``) the query points are split
+over the mesh: each device runs the device sweep on its consecutive share
+of them and the top-k merge is exact; the host path predicts through
+``parallel.sharded_predict`` / ``sharded_predict_mogp``.
+
 Known reference quirk handled differently: with explicit multi-output
 ``expectations``, the reference sets ``ncoords`` from
 ``expectations[0].shape[0]`` (``HistoryMatching.py:649``), which is the
@@ -24,9 +29,9 @@ points.
 import numpy as np
 import torch
 
-from ..config import refuse_mesh
 from ..models.gp import GaussianProcessBase, PredictResult
 from ..models.mogp import MultiOutputGPBase
+from ..parallel.mesh import check_mesh, map_shards, split_rows
 
 __all__ = ["HistoryMatching"]
 
@@ -79,8 +84,7 @@ class HistoryMatching:
         self.I = None
         self.NROY = None
         self.RO = None
-        refuse_mesh(mesh, "HistoryMatching")
-        self.mesh = None
+        self.mesh = check_mesh(mesh)
 
         if self.check_gp(gp):
             self.set_gp(gp)
@@ -120,6 +124,14 @@ class HistoryMatching:
                 "ncoords is not set despite a valid parameter combination being found."
             )
         if use_coord_gp:
+            if self.mesh is not None:
+                from ..parallel.sharded import sharded_predict, sharded_predict_mogp
+
+                if isinstance(self.gp, MultiOutputGPBase):
+                    mu, var = sharded_predict_mogp(self.gp, self.coords, mesh=self.mesh)
+                else:
+                    mu, var = sharded_predict(self.gp, self.coords, mesh=self.mesh)
+                return PredictResult(mean=mu, unc=var, deriv=None)
             return self.gp.predict(self.coords)
         return self.expectations
 
@@ -192,7 +204,8 @@ class HistoryMatching:
         implausibilities (:func:`_implausibility_topk`); the global rank
         selection over the union of the groups' top-k equals the
         reference's full ``np.partition`` because the global (rank+1)-th
-        largest is always within some group's top-(rank+1).
+        largest is always within some group's top-(rank+1).  With a mesh,
+        each device sweeps its share of the points (:meth:`_sweep_topk`).
         """
         gp = self.gp
         n_obs = self.get_n_obs()
@@ -204,24 +217,40 @@ class HistoryMatching:
         disc_full = np.broadcast_to(
             np.atleast_1d(discrepancy), (n_obs,)
         ).astype(np.float64)
-        k = rank + 1
+        coords = gp._process_inputs(self.coords)
+        if self.mesh is None:
+            allk = self._sweep_topk(coords, disc_full, rank + 1)
+        else:
+            parts = split_rows(coords.shape[0], self.mesh.shape[self.mesh.axis_names[0]])
+            allk = np.concatenate(map_shards(
+                self.mesh, lambda i, d: self._sweep_topk(coords[parts[i]], disc_full, rank + 1, d),
+                n_items=len(parts)), axis=1)
+        return np.partition(allk, allk.shape[0] - rank - 1, axis=0)[
+            allk.shape[0] - rank - 1
+        ]
 
+    def _sweep_topk(self, coords, disc_full, k, device=None):
+        """Each emulator group's top-``k`` implausibilities at ``coords``,
+        stacked ``(sum of the groups' k, m)`` float64, swept on ``device``
+        (default the emulators')."""
         tops = []
-        for rows, tiles, scale, shift in gp._predict_groups(
-            gp._process_inputs(self.coords), list(range(n_obs))
+        for rows, tiles, scale, shift in self.gp._predict_groups(
+            coords, list(range(self.gp.n_emulators)), device=device
         ):
             # I is the same in a standardized emulator's own units, with
             # the observations mapped there in float64
-            to_device = gp.emulators[rows[0]]._tensor
+            em0 = self.gp.emulators[rows[0]]
+
+            def to_device(x):
+                return torch.as_tensor(x, dtype=em0._dtype,
+                                       device=em0._device if device is None else device)
+
             top = _implausibility_topk(
                 tiles, to_device((self.obs[0][rows] - shift) / scale),
                 to_device((self.obs[1][rows] + disc_full[rows]) / scale**2), min(k, len(rows)),
             )
             tops.append(top.to("cpu", torch.float64).numpy())
-        allk = np.concatenate(tops, axis=0)
-        return np.partition(allk, allk.shape[0] - rank - 1, axis=0)[
-            allk.shape[0] - rank - 1
-        ]
+        return np.concatenate(tops, axis=0)
 
     def get_NROY(self, discrepancy=0.0, rank=1):
         """Indices not yet ruled out (``HistoryMatching.py:291-316``)."""

@@ -26,14 +26,17 @@ across the whole acquisition loop:
   n_cand`` a candidate's variance conditions on its own block only, the
   JAX package's block-local approximation.
 
-The JAX package's mesh-sharded scoring is not ported: ``mesh=`` raises
-``NotImplementedError`` (ROADMAP A9).
+With ``mesh=`` (a ``parallel.DeviceMesh``) the candidate blocks are split
+over its devices (``mogp_tpu/uq/mice_device.py:224-250``): the block count
+is padded to a multiple of the mesh with fully masked blocks, every device
+scores its consecutive blocks against the design on its own copy, and the
+argmax over the gathered scores is the unsharded one.  The refit stays on
+the design's device.
 """
 
 import numpy as np
 import torch
 
-from ..config import refuse_mesh
 from ..models.fitting import _DEFAULT_LADDER, _LADDER_MODES
 from ..models.gp import FitArtifacts, _matvec, _prior_logp, gp_predict, make_gp_data, take_lanes
 from ..models.priors import GPPriors
@@ -41,6 +44,7 @@ from ..ops.cholesky import ChoFactor, cholesky_factor, jit_cholesky
 from ..ops.kernels import get_kernel
 from ..ops.lbfgs import lbfgs_minimize
 from ..ops.linalg import marginal_core, marginal_nlp
+from ..parallel.mesh import check_mesh, map_shards, to_device
 from .sequential_design import MICEDesign, _loo_variances_all
 
 __all__ = ["DeviceMICEDesign", "masked_gp_nlp"]
@@ -242,7 +246,9 @@ class DeviceMICEDesign(MICEDesign):
       every restart failed draws again, and under ``nugget="adaptive"``
       the fourth and later draws use the full jitter ladder.
     * ``nugget="pivot"`` raises (the pivoted factorization has no masked
-      form); ``mesh=`` other than ``None`` raises ``NotImplementedError``.
+      form).
+    * ``mesh`` splits the scoring's candidate blocks over its devices
+      (module doc).
     * :meth:`_estimate_next_target` takes only the point the last step
       chose, whose mean the score step computed.
     """
@@ -251,7 +257,7 @@ class DeviceMICEDesign(MICEDesign):
                  n_cand=50, nugget="adaptive", nugget_s=1.0, n_max=None,
                  n_tries=15, maxiter=200, cand_block=None,
                  kernel="SquaredExponential", mesh=None, device=None, dtype=None):
-        refuse_mesh(mesh, "DeviceMICEDesign")
+        self.mesh = check_mesh(mesh)
         super().__init__(base_design, f, n_samples, n_init, n_cand, nugget, nugget_s,
                          device, dtype)
         if nugget == "pivot":
@@ -275,7 +281,11 @@ class DeviceMICEDesign(MICEDesign):
         if cand_block is None:
             cand_block = min(self.n_cand, 4096)
         self.cand_block = int(cand_block)
-        self._n_cand_pad = -(-self.n_cand // self.cand_block) * self.cand_block
+        n_blocks = -(-self.n_cand // self.cand_block)
+        if mesh is not None:
+            n_dev = mesh.shape[mesh.axis_names[0]]
+            n_blocks = -(-n_blocks // n_dev) * n_dev
+        self._n_cand_pad = n_blocks * self.cand_block
         self._last_scores = None
         self._last_mu = None
         self._theta = None
@@ -363,14 +373,26 @@ class DeviceMICEDesign(MICEDesign):
         eps = float(torch.finfo(self.dtype).eps)
         fast_nugget = max(base_nugget * self.nugget_s, 1e3 * eps * sigma2)
 
-        scores, mu = _mice_score_step(
-            self._tensor(best_raw), data, mask_t,
-            self._tensor(cands.reshape(-1, self.cand_block, D)),
-            self._tensor(cmask.reshape(-1, self.cand_block)),
-            fast_nugget, self.nugget_s, self._kernel, nugget_type, True,
-        )
-        scores = scores.to("cpu", torch.float64).numpy()[: self.n_cand]
-        mu = mu.to("cpu", torch.float64).numpy()[: self.n_cand]
+        cand_blocks = cands.reshape(-1, self.cand_block, D)
+        cand_mask = cmask.reshape(-1, self.cand_block)
+
+        def score(blocks, device):
+            return [x.to("cpu", torch.float64).numpy() for x in _mice_score_step(
+                torch.as_tensor(best_raw, dtype=self.dtype, device=device),
+                to_device(data, device), mask_t.to(device),
+                torch.as_tensor(cand_blocks[blocks], dtype=self.dtype, device=device),
+                torch.as_tensor(cand_mask[blocks], dtype=self.dtype, device=device),
+                fast_nugget, self.nugget_s, self._kernel, nugget_type, True,
+            )]
+
+        if self.mesh is None:
+            scores, mu = score(slice(None), self.device)
+        else:
+            per = cand_blocks.shape[0] // self.mesh.shape[self.mesh.axis_names[0]]
+            shards = map_shards(self.mesh, lambda k, d: score(slice(k * per, (k + 1) * per), d))
+            scores, mu = (np.concatenate(x) for x in zip(*shards))
+        scores = scores[: self.n_cand]
+        mu = mu[: self.n_cand]
         scores = np.where(np.isfinite(scores), scores, -np.inf)
         if not np.any(np.isfinite(scores)):
             raise RuntimeError("Unable to find parameters suitable for both GPs")

@@ -25,8 +25,13 @@ observations in the targets' units.
 Randomness: the initial population, then each stage, draws from a
 ``torch.Generator`` seeded by ``(seed, stage)``, so a run with
 ``checkpoint_path`` (saved after every stage, resumed from the last one)
-equals the run without it.  ``mesh=`` other than ``None`` raises (ROADMAP
-A9).
+equals the run without it.
+
+With ``mesh=`` (a ``parallel.DeviceMesh``) only the prediction is split:
+every implausibility evaluation cuts the population into consecutive
+shares, one per device of the mesh, and gathers the shares' I back.  The
+draws, weights and resampling stay on the emulator's device, so the
+particles do not depend on the mesh.
 """
 
 from typing import NamedTuple
@@ -34,11 +39,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import refuse_mesh
 from ..models.gp import GaussianProcessBase, gp_predict
 from ..models.meanfun import design_matrix_fn
 from ..models.mogp import MultiOutputGPBase
 from ..ops.hmc import seeded_generator
+from ..parallel.mesh import check_mesh, map_shards, split_rows, to_device
 from ..utils import checkpoint as _ckpt
 
 __all__ = ["SMCResult", "smc_history_match", "systematic_resample"]
@@ -68,8 +73,9 @@ def systematic_resample(offset, weights, n):
     return torch.clamp_max(idx, weights.shape[0] - 1)
 
 
-def _make_implausibility_fn(gp, obs_mean, obs_var, discrepancy, include_nugget, rank=1):
-    """``x (m, D) tensor -> I (m,)`` on the emulator's device
+def _make_implausibility_fn(gp, obs_mean, obs_var, discrepancy, include_nugget, rank=1,
+                            device=None):
+    """``x (m, D) tensor -> I (m,)`` on ``device`` (default the emulator's)
     (``mogp_tpu/uq/smc.py:56-112``).
 
     A single ``GaussianProcess`` gives the plain implausibility; a
@@ -87,13 +93,16 @@ def _make_implausibility_fn(gp, obs_mean, obs_var, discrepancy, include_nugget, 
         eff_rank = 0 if n_obs == 1 else min(rank, n_obs - 1)
         rows = list(range(gp.n_emulators))
         em0 = gp.emulators[0]
+        device = em0._device if device is None else device
         scale = np.array([em._t_std for em in gp.emulators])
         shift = np.array([em._t_mean for em in gp.emulators])
-        z = em0._tensor((obs_mean - shift) / scale)[:, None]
-        v = em0._tensor((obs_var + discrepancy) / scale**2)[:, None]
+        z = torch.as_tensor((obs_mean - shift) / scale, dtype=em0._dtype, device=device)[:, None]
+        v = torch.as_tensor((obs_var + discrepancy) / scale**2, dtype=em0._dtype,
+                            device=device)[:, None]
 
         def I_fn(x):
-            ((_, tiles, _, _),) = gp._predict_groups(x, rows, include_nugget=include_nugget)
+            ((_, tiles, _, _),) = gp._predict_groups(x, rows, include_nugget=include_nugget,
+                                                     device=device)
             I = torch.cat([torch.abs(z - mu) / torch.sqrt(var + v) for mu, var in tiles], dim=1)
             return torch.sort(I, dim=0).values[n_obs - eff_rank - 1]
 
@@ -102,12 +111,29 @@ def _make_implausibility_fn(gp, obs_mean, obs_var, discrepancy, include_nugget, 
     dm_fn = design_matrix_fn(gp._mean, state=gp._mean_state)
     z = (float(obs_mean) - gp._t_mean) / gp._t_std
     v = (float(obs_var) + discrepancy) / gp._t_std**2
+    device = gp._device if device is None else device
+    arts, data = to_device(gp._artifacts, device), to_device(gp._data, device)
 
     def I_fn(x):
-        x = x.to(gp._device, gp._dtype)
-        mu, var = gp_predict(gp._artifacts, gp._data, x, dm_fn(x), gp.kernel, gp.nugget_type,
+        x = x.to(device, gp._dtype)
+        mu, var = gp_predict(arts, data, x, dm_fn(x), gp.kernel, gp.nugget_type,
                              include_nugget=include_nugget)
         return torch.abs(z - mu[0]) / torch.sqrt(var[0] + v)
+
+    return I_fn
+
+
+def _sharded_implausibility_fn(mesh, make_fn):
+    """``x -> I`` with the rows of ``x`` cut into consecutive shares, one
+    per shard of ``mesh``, each evaluated by ``make_fn(device)``'s function
+    on its device and gathered back onto ``x``'s device."""
+    devices = mesh.shard_devices()
+    fns = [make_fn(d) for d in devices]
+
+    def I_fn(x):
+        parts = split_rows(x.shape[0], len(devices))
+        shares = map_shards(mesh, lambda k, d: fns[k](x[parts[k]]), n_items=len(parts))
+        return torch.cat([s.to(x.device) for s in shares])
 
     return I_fn
 
@@ -170,6 +196,8 @@ def smc_history_match(
         the population's I, floored at ``threshold``.
     :param n_mcmc: random-walk Metropolis steps per stage.
     :param rank: the rank-scored order over outputs (0 = max; default 1).
+    :param mesh: a ``parallel.DeviceMesh`` over which each implausibility
+        evaluation is split (module doc).
     :param checkpoint_path: optional ``.npz`` path (extension optional):
         the population, scale, stream state and stage are saved after
         every stage, a run started again resumes from the last one, and the
@@ -180,7 +208,7 @@ def smc_history_match(
     assert isinstance(gp, (GaussianProcessBase, MultiOutputGPBase)), (
         "smc_history_match needs a GaussianProcess or MultiOutputGP"
     )
-    refuse_mesh(mesh, "smc_history_match")
+    check_mesh(mesh)
     if isinstance(obs, (float, int)):
         obs = [float(obs), 0.0]
     if isinstance(gp, MultiOutputGPBase):
@@ -197,8 +225,11 @@ def smc_history_match(
     device, dtype = ref_em._device, ref_em._dtype
     lo = torch.as_tensor(bounds[:, 0], dtype=dtype, device=device)
     hi = torch.as_tensor(bounds[:, 1], dtype=dtype, device=device)
-    I_fn = _make_implausibility_fn(gp, obs_mean, obs_var, float(discrepancy), include_nugget,
-                                   rank=rank)
+    def make_fn(dev=None):
+        return _make_implausibility_fn(gp, obs_mean, obs_var, float(discrepancy),
+                                       include_nugget, rank=rank, device=dev)
+
+    I_fn = make_fn() if mesh is None else _sharded_implausibility_fn(mesh, make_fn)
 
     g = seeded_generator(device, seed, _INIT_STREAM)
     particles = lo + (hi - lo) * torch.rand((n_particles, gp.D), generator=g, dtype=dtype,

@@ -2,5 +2,7 @@
 in ``utils.misc``; timing, FLOP counts and profiling in ``utils.metrics``."""
 
 from .checkpoint import atomic_savez, load_gp, load_mogp, save_gp, save_mogp
+from .misc import integer_bisect, k_fold_cross_validation
 
-__all__ = ["atomic_savez", "save_gp", "load_gp", "save_mogp", "load_mogp"]
+__all__ = ["atomic_savez", "save_gp", "load_gp", "save_mogp", "load_mogp",
+           "k_fold_cross_validation", "integer_bisect"]

@@ -174,7 +174,8 @@ def test_setters_checks_update_and_str():
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="A9"):
+    """A ``mesh`` that is not a ``parallel.DeviceMesh`` raises."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         mogp_tpu_torch.HistoryMatching(obs=1.0, mesh=object())
 
 

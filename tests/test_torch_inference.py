@@ -9,7 +9,8 @@ its gradient and 20 Adam steps at the same draws (``rtol`` 1e-9, the
 streams differ, so NUTS and VI are held to the statistical assertions of
 ``tests/test_inference.py``, with its seeds.  Within the port a chain's
 samples do not depend on the other lanes of its batch, and every
-``mesh=`` raises until the multi-device layer is ported.
+``mesh=`` that is not a ``parallel.DeviceMesh`` raises ``TypeError``
+(``tests/test_torch_parallel_*.py`` run the mesh paths).
 """
 
 import numpy as np
@@ -54,8 +55,8 @@ def _twin(gp):
 @pytest.mark.parametrize("entry", ["fit_GP_MAP", "sample_GP_MCMC", "sample_MOGP_MCMC",
                                    "smc_history_match"])
 def test_mesh_is_refused(entry, fit_gp):
-    """A request to shard raises instead of running on one device (ROADMAP
-    A9); ``fit_GP_MAP`` used to warn and fit anyway."""
+    """A ``mesh`` that is not a ``parallel.DeviceMesh`` raises ``TypeError``
+    instead of running on one device."""
     mgp = mogp_tpu_torch.MultiOutputGP(fit_gp.inputs, np.stack([fit_gp.targets] * 2),
                                        nugget="fit", device="cpu")
     calls = {
@@ -65,7 +66,7 @@ def test_mesh_is_refused(entry, fit_gp):
         "smc_history_match": lambda: mogp_tpu_torch.smc_history_match(
             fit_gp, 0.0, [[0, 2], [0, 2]], mesh=object()),
     }
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         calls[entry]()
 
 

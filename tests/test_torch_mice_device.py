@@ -7,8 +7,9 @@ log posterior against ``mogp_tpu``'s and against the port's own
 ``mogp_tpu``'s ``_mice_score_step`` (scores rtol 1e-7, means rtol 1e-8);
 seeded design loops that choose the same points.  The JAX package's
 "two compiled programs" test becomes a check that every step hands the fit
-and the score step the same shapes, and its mesh test a check that
-``mesh=`` is refused.
+and the score step the same shapes; its mesh test is in
+``tests/test_torch_parallel_uq.py``, and here a ``mesh=`` that is not a
+``parallel.DeviceMesh`` is refused.
 """
 
 import numpy as np
@@ -468,8 +469,8 @@ def test_device_mice_rejects_pivot_nugget():
 
 
 def test_device_mice_mesh_is_refused():
-    """The JAX package's mesh-sharded scoring is not ported (ROADMAP A9):
-    ``mesh=`` raises instead of scoring on one device."""
+    """A ``mesh`` that is not a ``parallel.DeviceMesh`` raises ``TypeError``
+    instead of scoring on one device."""
     ed = mogp_tpu_torch.LatinHypercubeDesign([(0.0, 1.0)])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         mogp_tpu_torch.DeviceMICEDesign(ed, n_samples=2, n_init=4, mesh=object(), device="cpu")
