@@ -152,6 +152,23 @@ Phases (any failure raises, so the exit code is not 0):
     ``DeviceMICEDesign(mesh=)``, the same points as 8a's first two.  No
     CUDA tensor may reach ``torch.linalg.cholesky_ex`` in 9a, 9b or 10's
     fit and MICE.  One card measures no speedup from several.
+11. Several processes on the card: two worker processes (``python3
+    chip_smoke.py --fit-worker RANK PORT 2``, started by
+    ``mogp_tpu_torch/tools/workers.py``), joined by ``init_distributed`` on
+    localhost (gloo), each on ``cuda:0``; each runs phase 4's warm-up fit
+    and its timed fit over ``auto_mesh()`` (``[cuda:0] * 2``, one entry a
+    process), fitting 32 of the 64 outputs and receiving the rest through
+    the fit's gathers.  Every theta on both processes must be bit-identical
+    to phase 4's, both must hold all 64 outputs, K2 must launch in each
+    (counted per process), and process 1's ``predict`` of phase 3's first
+    4096 queries must equal phase 4's emulator's on the card bit for bit.
+    Then each process runs ``sample_MOGP_MCMC`` of its fit over the same
+    mesh (2 chains an output, 10 + 10, trees of at most 31 leapfrogs),
+    whose chains must equal, bit for bit, the same run in this process
+    over ``DeviceMesh([cuda:0] * 2)`` (the same shards), with K2 launched
+    in each process.  It prints each process's fit and MCMC walls, phases
+    and gathers, and the phase's wall.  A worker that fails, or outlasts
+    300 s, ends both and fails the phase.
 
 Around each of phases 3, 4, 5, 6's sweep, 7a, 7b, 7e, 7f, 8a and 8c the
 kernels' launch counters are zeroed just before and read just after;
@@ -161,7 +178,8 @@ blocked variant in 5, the routed blocked variant in 8a, where the other
 two must not launch), and around 9a's gKDR and fit, 9b and each path of
 10 (K1 twice and the blocked route once per gKDR, K2 in 9a's fit, 9b and
 10's fits and NUTS, the fused kernel in 10b's sweep and SMC, K1, the
-fused kernel and the routed blocked variant in 10b's MICE).  On the card
+fused kernel and the routed blocked variant in 10b's MICE), and in each
+process of 11 around its timed fit and its MCMC (K2).  On the card
 the NUTS and VI potential is replayed from a CUDA
 graph; K2's wrapper counts the launches of each replay
 (``ops/cholesky_batched.py::replay``).  The
@@ -171,7 +189,8 @@ The last three lines of standard output are a JSON object describing each
 kernel (K1, the fused prediction, K2, K3-K5; K2's launches per leapfrog in
 7a and 7b, the fused kernel's per SMC stage in 7f, each kernel's per MICE
 step in 8a, K3-K5 also at (25, 4096); each kernel's launches per gKDR
-and in 9a's fit and 9b, and under the mesh in 10a and 10b), the
+and in 9a's fit and 9b, under the mesh in 10a and 10b, and K2's in each
+process's fit and MCMC of 11), the
 ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
@@ -2784,9 +2803,186 @@ def phase_mesh(mogp_tpu_torch, km, kb, kbl, pf, label, keep):
     return out
 
 
+# phase 11: phase 4's fit in PROC_WORKERS processes on the one card, joined
+# by init_distributed; the workers must end within PROC_DEADLINE seconds.
+# Then sample_MOGP_MCMC of the fit across the processes: PROC_CHAINS chains
+# an output, PROC_ITERS + PROC_ITERS, trees of at most 2**PROC_DEPTH - 1
+# leapfrogs (cut to keep the phase short)
+PROC_WORKERS, PROC_DEADLINE = 2, 300
+PROC_CHAINS, PROC_ITERS, PROC_DEPTH, PROC_SEED = 2, 10, 5, 4
+
+
+def proc_mcmc(mogp_tpu_torch, mgp, mesh):
+    """Phase 11's ``sample_MOGP_MCMC`` of ``mgp`` over ``mesh``: the
+    samples ``(outputs, chains, PROC_ITERS, P)``."""
+    import numpy as np
+
+    res = mogp_tpu_torch.sample_MOGP_MCMC(mgp, n_samples=PROC_ITERS, n_warmup=PROC_ITERS,
+                                          n_chains=PROC_CHAINS, seed=PROC_SEED,
+                                          max_depth=PROC_DEPTH, mesh=mesh)
+    return np.stack([r.samples for r in res])
+
+
+def _proc_dir():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "fit_workers")
+
+
+def fit_worker(rank, port, n_procs):
+    """One process of a fit across processes (``python3 chip_smoke.py
+    --fit-worker RANK PORT N``): joins the others on localhost, runs phase
+    4's warm-up fit and its timed fit over ``auto_mesh()``, and writes its
+    thetas, its K2 launches, its fit wall and its gathers to
+    ``build/fit_workers``; process 1 also predicts phase 3's first N_CHECK
+    queries."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import mogp_tpu_torch
+    from mogp_tpu_torch.models import fitting
+    from mogp_tpu_torch.ops import cholesky_batched as kb
+    from mogp_tpu_torch.parallel import auto_mesh, init_distributed
+    from mogp_tpu_torch.parallel import mesh as pmesh
+
+    init_distributed("localhost:{}".format(port), n_procs, rank)
+    mesh = auto_mesh()
+    if (mesh.processes != list(range(n_procs))
+            or mesh.devices[rank] != torch.device("cuda", torch.cuda.current_device())):
+        raise AssertionError("process {}'s global mesh of {} processes is {}".format(
+            rank, n_procs, mesh))
+    x, y = make_data(N_OUTPUTS)
+    mgp = mogp_tpu_torch.MultiOutputGP(x, y, nugget="adaptive", device="cuda")
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=N_TRIES, maxiter=MAXITER, mesh=mesh)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    kb.launches = 0
+    np.random.seed(1)
+    t0 = time.perf_counter()
+    mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=N_TRIES, refit=True, maxiter=MAXITER, mesh=mesh)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    report = {"rank": rank, "device": str(mesh.devices[rank]), "warm_s": warm_s,
+              "fit_s": fit_s, "k2_launches": kb.launches, "n_fit": len(mgp.get_indices_fit()),
+              "gathers": list(pmesh.last_gathers), "phases": list(fitting.last_phase_times)}
+    out = {"thetas": np.stack([em.theta.get_data() for em in mgp.emulators])}
+    if rank == 1:
+        q = np.random.RandomState(1).uniform(size=(N_CHECK, N_DIM))  # phase 3's first rows
+        res = mgp.predict(q)
+        out.update(mean=res.mean, unc=res.unc)
+    kb.launches = 0
+    del pmesh.last_gathers[:]
+    t0 = time.perf_counter()
+    out["mcmc"] = proc_mcmc(mogp_tpu_torch, mgp, mesh)
+    torch.cuda.synchronize()
+    report.update(mcmc_s=time.perf_counter() - t0, mcmc_k2_launches=kb.launches,
+                  mcmc_gathers=list(pmesh.last_gathers))
+    np.savez(os.path.join(_proc_dir(), "proc{}.npz".format(rank)), **out)
+    with open(os.path.join(_proc_dir(), "proc{}.json".format(rank)), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def run_fit_workers(n_procs, deadline):
+    """Phase 4's fit in ``n_procs`` processes of :func:`fit_worker`; each
+    worker that fails or outlasts ``deadline`` fails the run (all killed).
+    Returns ``(wall seconds, reports, results)``, one of each a process."""
+    import numpy as np
+    from mogp_tpu_torch.tools.workers import run_workers
+
+    os.makedirs(_proc_dir(), exist_ok=True)
+    for name in os.listdir(_proc_dir()):
+        os.remove(os.path.join(_proc_dir(), name))
+    here = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    run_workers(lambda port: [[sys.executable, here, "--fit-worker", str(rank), str(port),
+                               str(n_procs)] for rank in range(n_procs)], deadline,
+                cwd=os.path.dirname(here))
+    wall = time.perf_counter() - t0
+    reports, results = [], []
+    for rank in range(n_procs):
+        with open(os.path.join(_proc_dir(), "proc{}.json".format(rank))) as f:
+            reports.append(json.load(f))
+        results.append(dict(np.load(os.path.join(_proc_dir(), "proc{}.npz".format(rank)))))
+    return wall, reports, results
+
+
+def fit_worker_line(rep, res, n_procs, ref_thetas, label):
+    """A process's line of a fit across processes, and whether it holds
+    all N_OUTPUTS outputs bit-identical to ``ref_thetas`` after launching
+    K2."""
+    import numpy as np
+
+    same = sum(np.array_equal(t, r) for t, r in zip(res["thetas"], ref_thetas))
+    good = same == N_OUTPUTS and rep["n_fit"] == N_OUTPUTS and rep["k2_launches"] > 0
+    phases = {}
+    for k, v in rep["phases"]:
+        phases[k] = phases.get(k, 0.0) + v
+    line = ("process {} of {} on {} ({}): warm-up fit {} s; timed fit_GP_MAP({} outputs x {} "
+            "restarts, maxiter={}, mesh=auto_mesh()) {} s; phases {}; gathers (s, bytes sent) "
+            "{}; outputs held {}; theta bit-identical to the one-process fit for {} of {}; "
+            "cholesky_batched launches {}: {}".format(
+                rep["rank"], n_procs, rep["device"], label, rep["warm_s"], N_OUTPUTS, N_TRIES,
+                MAXITER, rep["fit_s"], phases, rep["gathers"], rep["n_fit"], same, N_OUTPUTS,
+                rep["k2_launches"], "ok" if good else "FAIL"))
+    return line, good
+
+
+def phase_processes(mogp_tpu_torch, mgp, label, keep):
+    """Phase 11: phase 4's fit in two processes on the card, then
+    ``sample_MOGP_MCMC`` across them (module doc); returns K2's launches in
+    each process's timed fit and in its MCMC."""
+    import numpy as np
+    import torch
+    from mogp_tpu_torch.parallel import DeviceMesh
+
+    q = np.random.RandomState(1).uniform(size=(N_CHECK, N_DIM))
+    ref = mgp.predict(q)
+    t0 = time.perf_counter()
+    ref_mcmc = proc_mcmc(mogp_tpu_torch, mgp,
+                         DeviceMesh([torch.device("cuda", 0)] * PROC_WORKERS))
+    mcmc_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()  # the workers share the card with this process
+    wall, reports, results = run_fit_workers(PROC_WORKERS, PROC_DEADLINE)
+    ok = True
+    for rep, res in zip(reports, results):
+        line, good = fit_worker_line(rep, res, PROC_WORKERS, keep["fit_thetas"], label)
+        ok = ok and good and rep["device"] == "cuda:0"
+        print("phase 11: " + line)
+    got = results[1]
+    same_pred = (np.array_equal(got["mean"], ref.mean) and np.array_equal(got["unc"], ref.unc))
+    ok = ok and same_pred
+    for rep, res in zip(reports, results):
+        same = int(sum(np.array_equal(a, b) for a, b in zip(res["mcmc"], ref_mcmc)))
+        good = (same == N_OUTPUTS and rep["mcmc_k2_launches"] > 0
+                and bool(np.isfinite(res["mcmc"]).all()))
+        ok = ok and good
+        print("phase 11: process {}: sample_MOGP_MCMC({} outputs x {} chains, {} + {}, "
+              "max_depth {}, mesh=auto_mesh()) {} s (in one process over DeviceMesh([cuda:0] * "
+              "{}): {} s); outputs whose chains are bit-identical to the one-process run's: "
+              "{} of {}; gathers (s, bytes sent) {}; cholesky_batched launches {}: {}".format(
+                  rep["rank"], N_OUTPUTS, PROC_CHAINS, PROC_ITERS, PROC_ITERS, PROC_DEPTH,
+                  rep["mcmc_s"], PROC_WORKERS, mcmc_s, same, N_OUTPUTS, rep["mcmc_gathers"],
+                  rep["mcmc_k2_launches"], "ok" if good else "FAIL"))
+    print("phase 11: process 1's predict of phase 3's first {} queries against phase 4's "
+          "emulator on the card: bit-identical {} (max |d mean| {}, max |d var| {}); the "
+          "phase {} s: {}".format(
+              N_CHECK, same_pred, float(np.max(np.abs(got["mean"] - ref.mean))),
+              float(np.max(np.abs(got["unc"] - ref.unc))), wall, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("11: the fit or the chains across processes differ from one "
+                             "process's, or a process did not launch K2")
+    return ([rep["k2_launches"] for rep in reports],
+            [rep["mcmc_k2_launches"] for rep in reports])
+
+
 def main():
     import torch
 
+    if len(sys.argv) == 5 and sys.argv[1] == "--fit-worker":
+        return fit_worker(*(int(a) for a in sys.argv[2:]))
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -2867,6 +3063,8 @@ def main():
         rec["launches_in_gkdr_fit"] = dimred["fit"][name]
         rec["launches_in_kdr_bench"] = dimred["9b"][name]
         rec["launches_under_mesh"] = {path: counts[name] for path, counts in mesh.items()}
+    chol_record["launches_per_process_fit"], chol_record["launches_per_process_mcmc"] = \
+        phase_processes(mogp_tpu_torch, mgp, smi, keep)
 
     print(json.dumps({"kernels": [record, fused_record, chol_record, *blocked_records]}))
     print(smi)

@@ -21,7 +21,14 @@ With ``mesh=`` (a ``parallel.DeviceMesh``) every stage, the rescue and the
 refit split each chunk's outputs over the mesh, whole outputs per shard
 (an output's restarts stay together); the starts are drawn on the host
 before the split, and a lane does not depend on the others, so the
-per-output results do not depend on the mesh.
+per-output results do not depend on the mesh.  A mesh that spans
+processes (``parallel.init_distributed``) splits the same way: each
+process minimizes and refits its own shards' outputs, and after each
+chunk of each stage, and after the refit, every process receives every
+shard's results (``parallel.mesh.map_shards``), so everything after
+(the race's choice, the rescue, the winners) runs alike in every
+process, and each ends up holding the whole fit.  Every process draws
+the same starts only if every process seeds numpy's RNG alike.
 
 Failure semantics match the reference: restarts with a non-finite
 objective are dropped; an output with no finite restart is left unfit
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops.lbfgs import lbfgs_minimize
+from ..parallel import mesh as pmesh
 from ..parallel.mesh import check_mesh, map_shards, split_rows, to_device
 from .gp import GaussianProcess, GaussianProcessBase, cat_lanes, gp_nlp, take_lanes
 from .mogp import MultiOutputGP
@@ -261,6 +269,7 @@ def _fit_MOGP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", refit=False, m
         return gp
 
     del last_phase_times[:]
+    del pmesh.last_gathers[:]
     t_phase = time.perf_counter()
 
     def mark(label):
@@ -317,8 +326,9 @@ def _fit_MOGP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", refit=False, m
             gp._fit_lanes(fit_rows, best_raw)
         else:
             parts = split_rows(len(fit_rows), mesh.shape[mesh.axis_names[0]])
-            map_shards(mesh, lambda k, d: gp._fit_lanes(fit_rows[parts[k]], best_raw[parts[k]],
-                                                        device=d), n_items=len(parts))
+            for fits in map_shards(mesh, lambda k, d: gp._lane_artifacts(
+                    fit_rows[parts[k]], best_raw[parts[k]], device=d), n_items=len(parts)):
+                gp._install(fits)
         mark("refit")
     return gp
 
@@ -344,11 +354,11 @@ def fit_GP_MAP(*args, n_tries=15, theta0=None, method="L-BFGS-B", skip_failures=
     raise ``RuntimeError``; a single GP that cannot be fit raises.
 
     ``mesh`` (a ``parallel.DeviceMesh``; anything else raises
-    ``TypeError``) splits a ``MultiOutputGP``'s outputs over its devices
-    (see the module doc); a single GP ignores it with a warning, as in
-    ``mogp_tpu``.
+    ``TypeError``) splits a ``MultiOutputGP``'s outputs over its devices,
+    those of several processes included (see the module doc); a single GP
+    ignores it with a warning, as in ``mogp_tpu``.
     """
-    check_mesh(mesh)
+    check_mesh(mesh, across_processes=True)
     if len(args) == 1:
         gp = args[0]
         if isinstance(gp, MultiOutputGP):

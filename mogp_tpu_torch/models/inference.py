@@ -469,13 +469,16 @@ def sample_MOGP_MCMC(
     outputs of each group whose size its first axis divides over its
     devices, whole outputs (with their chains) per shard, each shard
     checkpointing to ``".shard{k}"`` after the group's path; another group
-    runs whole on the emulators' device.
+    runs whole on the emulators' device.  A mesh that spans processes
+    (``parallel.init_distributed``) splits the same way: each process runs
+    its own shards, and every process receives every output's result, as
+    ``mogp_tpu``'s processes do.
 
     :returns: list of per-output ``MCMCResult``.
     """
     from .mogp import MultiOutputGP
 
-    check_mesh(mesh)
+    check_mesh(mesh, across_processes=True)
     assert isinstance(mgp, MultiOutputGP)
     assert mgp.get_indices_not_fit() == [], (
         "MAP-fit all outputs first (fit_GP_MAP) to initialize chains"

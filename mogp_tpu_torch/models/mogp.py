@@ -362,18 +362,30 @@ class MultiOutputGP(MultiOutputGPBase):
         self._fit_lanes(range(self.n_emulators), thetas)
 
     def _fit_lanes(self, indices, thetas, device=None):
-        """Fit emulators ``indices`` at ``thetas`` (same order): per
+        """Fit emulators ``indices`` at ``thetas`` (same order) on ``device``
+        (default the emulators'; the artifacts are put back on each
+        emulator's device): :meth:`_install` of :meth:`_lane_artifacts`.
+        This is the one path of ``fit``, ``load_mogp`` and the MAP refit."""
+        self._install(self._lane_artifacts(indices, thetas, device))
+
+    def _lane_artifacts(self, indices, thetas, device=None):
+        """The fit artifacts of emulators ``indices`` at ``thetas``: per
         signature group, batched ``gp_fit`` calls of at most
         ``fitting._max_lanes`` lanes each (the device-memory budget), one
-        host transfer per call, on ``device`` (default the emulators'; the
-        artifacts are put back on each emulator's device).  This is the one
-        path of ``fit``, ``load_mogp`` and the MAP refit.  At n >=
-        ``PROGRESSIVE_LADDER_MIN_N`` the jitter ladder is progressive, so
-        each lane stops at the rung a single ``GaussianProcess.fit`` stops
-        at; below it every rung is factored at once."""
+        host transfer per call, on ``device`` (default the emulators').  At
+        n >= ``PROGRESSIVE_LADDER_MIN_N`` the jitter ladder is progressive,
+        so each lane stops at the rung a single ``GaussianProcess.fit``
+        stops at; below it every rung is factored at once.
+
+        :returns: ``[(rows, raws, arts, summary)]``, one per call: the
+            emulator indices, their raw thetas, the ``FitArtifacts`` of
+            their lanes and the ``_host_summary`` rows.
+        """
         from .fitting import _max_lanes  # fitting imports this module
 
+        indices = list(indices)
         ems = [self.emulators[i] for i in indices]
+        fits = []
         for group in self._groups(ems).values():
             step = _max_lanes(ems[group[0]])
             for c0 in range(0, len(group), step):
@@ -388,12 +400,21 @@ class MultiOutputGP(MultiOutputGPBase):
                     em0.kernel,
                     em0.nugget_type,
                 )
-                summary = _host_summary(arts)
-                for lane, (em, raw) in enumerate(zip(chunk_ems, raws)):
-                    em._set_fit_artifacts(
-                        raw, to_device(take_lanes(arts, slice(lane, lane + 1)), em._device),
-                        summary[lane],
-                    )
+                fits.append(([indices[i] for i in chunk], raws, arts, _host_summary(arts)))
+        return fits
+
+    def _install(self, fits):
+        """Set the artifacts of :meth:`_lane_artifacts` on their emulators,
+        each lane on its emulator's device (one copy of a call's artifacts
+        a device, of which each lane takes its slice)."""
+        for rows, raws, arts, summary in fits:
+            on_device = {}
+            for lane, (row, raw) in enumerate(zip(rows, raws)):
+                em = self.emulators[row]
+                if em._device not in on_device:
+                    on_device[em._device] = to_device(arts, em._device)
+                em._set_fit_artifacts(
+                    raw, take_lanes(on_device[em._device], slice(lane, lane + 1)), summary[lane])
 
     def fit_emulator(self, index, theta):
         self.emulators[index].fit(theta)

@@ -27,10 +27,12 @@ def sharded_fit_mogp(gp, n_tries=15, theta0=None, mesh=None, maxiter=200, gtol=N
     """MAP-fit every output of a ``MultiOutputGP`` with the outputs split
     over ``mesh`` (default :func:`~.mesh.auto_mesh`): ``fit_GP_MAP`` with
     ``mesh``, so the race, the chunking, the rescue and the refit are the
-    unsharded path's, per signature group."""
+    unsharded path's, per signature group.  After ``init_distributed``
+    the default mesh spans the processes, and every process ends up with
+    the whole fit."""
     from ..models.fitting import fit_GP_MAP
 
-    mesh = check_mesh(mesh) or auto_mesh()
+    mesh = check_mesh(mesh, across_processes=True) or auto_mesh()
     kwargs = dict(maxiter=maxiter, race=race)
     if gtol is not None:
         kwargs["gtol"] = gtol
@@ -88,7 +90,7 @@ def sharded_predict_mogp(gp, testing, mesh=None, unc=True, include_nugget=True,
         arrays (``variances`` ``None`` unless ``unc``); the rows of unfit
         emulators are NaN under ``allow_not_fit``, which otherwise raises.
     """
-    mesh = check_mesh(mesh) or auto_mesh()
+    mesh = check_mesh(auto_mesh() if mesh is None else mesh)
     n_dev = mesh.shape[mesh.axis_names[0]]
     testing = _testing(testing, gp.D)
     n_query = testing.shape[0]
@@ -145,7 +147,7 @@ def sharded_predict(gp, testing, mesh=None, unc=True, include_nugget=True,
     (``var`` ``None`` unless ``unc``)."""
     if gp.theta.get_data() is None or gp._artifacts is None:
         raise ValueError("hyperparameters have not been fit for this Gaussian Process")
-    mesh = check_mesh(mesh) or auto_mesh()
+    mesh = check_mesh(auto_mesh() if mesh is None else mesh)
     n_dev = mesh.shape[mesh.axis_names[0]]
     testing = _testing(testing, gp.D)
     n_query = testing.shape[0]

@@ -2,7 +2,7 @@
 
 Run from the root of a checkout, on a machine with two or more CUDA cards:
 
-    python3 -m mogp_tpu_torch.tools.mesh_cards
+    python3 -m mogp_tpu_torch.tools.mesh_cards [--processes]
 
 ``auto_mesh()`` takes every card, so each shard runs on a host thread of
 its own (``parallel/mesh.py::map_shards``).  Each path of
@@ -21,8 +21,16 @@ result compares with the unsharded one:
    of the cards).
 
 Every comparison must hold (phase 10's rules), else it exits with 1.
+
+With ``--processes`` it runs the fit alone, three ways: on ``cuda:0``
+alone, over the cards' threads, and in one process per card joined by
+``init_distributed`` (``chip_smoke.py``'s phase 11 workers, each on its
+own card, after a warm-up fit of its own), printing each process's fit
+wall and gathers; every process must hold all 64 outputs, bit-identical to
+``cuda:0`` alone.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -72,7 +80,37 @@ def _both(name, run, compare):
     return ok
 
 
+def processes(fit):
+    """The fit alone: ``cuda:0``, the threads, one process per card."""
+    n = torch.cuda.device_count()
+    mesh = auto_mesh()
+    fit(None)
+    fit(mesh)
+    ref, t_one = _timed(lambda: fit(None))
+    cs._zero(km, kb, kbl, pf)
+    got, t_threads = _timed(lambda: fit(mesh))
+    same = int(sum(np.array_equal(p, q) for p, q in zip(got, ref)))
+    print("fit: cuda:0 alone {} s; over {} threads {} s, bit-identical for {} of {} outputs, "
+          "K2 launches {}".format(t_one, n, t_threads, same, cs.N_OUTPUTS, kb.launches),
+          flush=True)
+    ok = same == cs.N_OUTPUTS
+    torch.cuda.empty_cache()  # each worker shares its card with this process
+    wall, reports, results = cs.run_fit_workers(n, 600)
+    for rep, res in zip(reports, results):
+        line, good = cs.fit_worker_line(rep, res, n, ref, "one card a process")
+        print("fit: " + line, flush=True)
+        ok = ok and good and rep["device"] == "cuda:{}".format(rep["rank"])
+    print("fit: {} processes, one a card: slowest timed fit {} s (cuda:0 alone {} s, threads "
+          "{} s); the run of the workers, start to end, {} s".format(
+              n, max(rep["fit_s"] for rep in reports), t_one, t_threads, wall), flush=True)
+    return ok
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--processes", action="store_true",
+                        help="the fit alone: cuda:0, the threads, one process a card")
+    args = parser.parse_args()
     n = torch.cuda.device_count()
     if n < 2:
         print("mesh_cards: needs two or more CUDA devices, found {}".format(n), file=sys.stderr)
@@ -92,6 +130,11 @@ def main():
         np.random.seed(1)
         mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=cs.N_TRIES, maxiter=cs.MAXITER, mesh=m)
         return np.stack([em.theta.get_data() for em in mgp.emulators])
+
+    if args.processes:
+        ok = processes(fit)
+        print("mesh_cards: {}".format("ok" if ok else "FAIL"))
+        return 0 if ok else 1
 
     ok.append(_both("fit", fit, lambda a, b: (
         len(a) == cs.N_OUTPUTS and np.isfinite(a).all(),

@@ -6,11 +6,11 @@ For ``mogp_tpu`` and every subpackage and module of it (``models``, ``ops``,
 API is the TPU platform layer, which ROADMAP lists as not the port's work:
 ``config``'s TPU switches, ``native`` (a host oracle) and ``ops.blocked``
 (TPU tiling), and ``ops.pallas_kernels``, whose kernel the port has as
-``ops.kernel_matrix``.  The one listed exception inside the API is
-``parallel.init_distributed``: it exists and raises, naming ROADMAP A10.
+``ops.kernel_matrix``.  Inside the API there is no exception.
 """
 
 import importlib
+import inspect
 import pkgutil
 
 import pytest
@@ -22,8 +22,6 @@ import mogp_tpu_torch  # noqa: E402
 
 PLATFORM = {"mogp_tpu.config", "mogp_tpu.native", "mogp_tpu.ops.blocked",
             "mogp_tpu.ops.pallas_kernels"}
-EXCEPTIONS = {("mogp_tpu.parallel", "init_distributed"),
-              ("mogp_tpu.parallel.mesh", "init_distributed")}
 
 MODULES = ["mogp_tpu"] + sorted(m.name for m in pkgutil.walk_packages(mogp_tpu.__path__,
                                                                        "mogp_tpu."))
@@ -48,18 +46,18 @@ def test_every_module_is_ported_or_platform():
 def test_public_names_exist_in_the_port(name):
     mod = importlib.import_module(name)
     port = importlib.import_module(_port_name(name))
-    missing = [a for a in getattr(mod, "__all__", [])
-               if not hasattr(port, a) and (name, a) not in EXCEPTIONS]
+    missing = [a for a in getattr(mod, "__all__", []) if not hasattr(port, a)]
     assert missing == [], "{} lacks {}".format(port.__name__, missing)
 
 
-def test_the_listed_exception_raises_and_names_a10():
-    from mogp_tpu_torch.parallel import init_distributed
+def test_init_distributed_keeps_mogp_tpus_signature():
+    """The last name ported: the multi-process runtime, with the JAX
+    package's arguments and defaults."""
+    from mogp_tpu.parallel import init_distributed as jax_init
+    from mogp_tpu_torch.parallel import init_distributed, mesh
 
-    for name, attr in EXCEPTIONS:
-        assert getattr(importlib.import_module(_port_name(name)), attr) is init_distributed
-    with pytest.raises(NotImplementedError, match="A10"):
-        init_distributed()
+    assert mesh.init_distributed is init_distributed
+    assert inspect.signature(init_distributed) == inspect.signature(jax_init)
 
 
 def test_the_closed_gaps():

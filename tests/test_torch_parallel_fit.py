@@ -34,7 +34,6 @@ from mogp_tpu_torch.ops import hmc  # noqa: E402
 from mogp_tpu_torch.parallel import (  # noqa: E402
     DeviceMesh,
     auto_mesh,
-    init_distributed,
     replicate,
     shard_leading,
     sharded_fit_mogp,
@@ -99,8 +98,9 @@ def test_device_mesh_checks_and_threading_rule():
     assert one_card.shape == {"outputs": 4} and not one_card.threaded
     assert DeviceMesh(["cuda:0", "cuda:1"]).threaded
     assert not DeviceMesh(["cuda:0"]).threaded
-    with pytest.raises(NotImplementedError, match="A10"):
-        init_distributed()
+    # a mesh of this process alone spans no processes, and runs every shard
+    assert one_card.processes is None and not one_card.spans_processes
+    assert DeviceMesh(["cuda:0", "cuda:1"], processes=[0, 0]).threaded
 
 
 def test_shard_leading_and_replicate():
