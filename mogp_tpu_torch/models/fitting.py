@@ -34,9 +34,15 @@ Failure semantics match the reference: restarts with a non-finite
 objective are dropped; an output with no finite restart is left unfit
 (``theta`` is ``None``, ``get_indices_not_fit`` lists it), and a single
 GP raises.
+
+Spans (``utils/metrics.py``'s recorder): ``fitting.fit_GP_MAP`` is the
+root of each call, beneath it ``fitting.starts`` (the restart draws on
+the host), ``fitting.stage`` (one per race stage), ``fitting.rescue`` and
+``fitting.refit``; the last three also write ``last_phase_times``, whose
+``stage0`` holds the draws too.
 """
 
-import time
+import contextlib
 import warnings
 
 import numpy as np
@@ -45,6 +51,7 @@ import torch
 from ..ops.lbfgs import lbfgs_minimize
 from ..parallel import mesh as pmesh
 from ..parallel.mesh import check_mesh, map_shards, split_rows, to_device
+from ..utils import metrics
 from .gp import GaussianProcess, GaussianProcessBase, cat_lanes, gp_nlp, take_lanes
 from .mogp import MultiOutputGP
 
@@ -70,8 +77,10 @@ _DEFAULT_LADDER = "single"
 _CHUNK_BYTES = 16 * 2**30
 _LANE_MATRICES = 24
 
-# (label, seconds) per phase of the last _fit_MOGP_MAP call; every phase
-# ends with its results on the host, so the splits are device time too
+# (label, seconds) per phase of the last fit: "stage0", "stage1", ...,
+# "rescue" and "refit", the seconds of the spans fitting.stage, .rescue and
+# .refit, stage0's with the restart draws before it (fitting.starts); every
+# phase ends with its results on the host, so the splits are device time too
 last_phase_times = []
 
 
@@ -92,6 +101,15 @@ def _minimize(starts, data, kernel, nugget_type, maxiter, gtol, ftol, ladder):
 
 def _host(t):
     return t.to("cpu", torch.float64).numpy()
+
+
+@contextlib.contextmanager
+def _phase(kind, label, before=0.0, **attrs):
+    """The span ``fitting.<kind>``, whose seconds, and ``before``'s, go to
+    :data:`last_phase_times` under ``label``."""
+    with metrics.timed_span("fitting." + kind, **attrs) as span:
+        yield
+    last_phase_times.append((label, before + span.seconds))
 
 
 def _gather_starts(gp, n_tries, theta0):
@@ -168,33 +186,41 @@ def _fit_single_GP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", **kwargs)
     _check_method(method)
     maxiter, gtol, ftol, race, ladder = _extract_opt_options(dict(kwargs))
 
-    starts = _gather_starts(gp, n_tries, theta0)
+    del last_phase_times[:]
+    with metrics.timed_span("fitting.starts") as drawn:
+        starts = _gather_starts(gp, n_tries, theta0)
     plan = _race_plan(n_tries, maxiter, race) or [(maxiter, None)]
 
-    def run_schedule(ladder_mode):
-        cur = gp._tensor(starts)
-        for iters, keep in plan:
-            lane0 = torch.zeros(cur.shape[0], dtype=torch.int64, device=cur.device)
-            res = _minimize(cur, take_lanes(gp._data, lane0), gp.kernel, gp.nugget_type,
-                            iters, gtol, ftol, ladder_mode)
-            fun, xs = _host(res.fun), _host(res.x)
-            if keep is not None:
-                top = np.argsort(np.where(np.isfinite(fun), fun, np.inf))[:keep]
-                cur = res.x[torch.as_tensor(top, device=cur.device)]
-        return fun, xs
+    def run_stage(cur, iters, keep, ladder_mode):
+        lane0 = torch.zeros(cur.shape[0], dtype=torch.int64, device=cur.device)
+        res = _minimize(cur, take_lanes(gp._data, lane0), gp.kernel, gp.nugget_type,
+                        iters, gtol, ftol, ladder_mode)
+        fun, xs = _host(res.fun), _host(res.x)
+        if keep is not None:
+            top = np.argsort(np.where(np.isfinite(fun), fun, np.inf))[:keep]
+            cur = res.x[torch.as_tensor(top, device=cur.device)]
+        return fun, xs, cur
 
-    fun, xs = run_schedule(ladder)
+    cur = gp._tensor(starts)
+    for stage, (iters, keep) in enumerate(plan):
+        with _phase("stage", "stage{}".format(stage), drawn.seconds if stage == 0 else 0.0,
+                    stage=stage):
+            fun, xs, cur = run_stage(cur, iters, keep, ladder)
     if not np.isfinite(fun).any() and gp.nugget_type == "adaptive" and ladder is not False:
         # every start failed on the reduced trajectory ladder: retry the
         # whole schedule with the full ladder before declaring failure
-        fun, xs = run_schedule(False)
+        with _phase("rescue", "rescue"):
+            cur = gp._tensor(starts)
+            for iters, keep in plan:
+                fun, xs, cur = run_stage(cur, iters, keep, False)
 
-    idx = _best(fun)
-    if idx is None:
-        print("Minimization routine failed to return a value")
-        gp.theta = None
-    else:
-        gp.fit(xs[idx])
+    with _phase("refit", "refit"):
+        idx = _best(fun)
+        if idx is None:
+            print("Minimization routine failed to return a value")
+            gp.theta = None
+        else:
+            gp.fit(xs[idx])
     return gp
 
 
@@ -270,66 +296,62 @@ def _fit_MOGP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", refit=False, m
 
     del last_phase_times[:]
     del pmesh.last_gathers[:]
-    t_phase = time.perf_counter()
-
-    def mark(label):
-        nonlocal t_phase
-        now = time.perf_counter()
-        last_phase_times.append((label, now - t_phase))
-        t_phase = now
 
     for rel_indices in gp._groups([gp.emulators[i] for i in indices_to_fit]).values():
         global_idx = [indices_to_fit[i] for i in rel_indices]
         ems = [gp.emulators[i] for i in global_idx]
         em0 = ems[0]
-        starts = np.stack([_gather_starts(em, n_tries, theta0[i])
-                           for em, i in zip(ems, global_idx)])  # (G, n_tries, P)
+        with metrics.timed_span("fitting.starts") as drawn:
+            starts = np.stack([_gather_starts(em, n_tries, theta0[i])
+                               for em, i in zip(ems, global_idx)])  # (G, n_tries, P)
         G = len(ems)
 
         plan = _race_plan(n_tries, maxiter, race) or [(maxiter, None)]
         cur = starts
         for stage, (iters, keep) in enumerate(plan):
-            fun, xs = _run_fit_chunked(ems, cur, iters, gtol, ftol, ladder, mesh)
-            mark("stage{}".format(stage))
-            if keep is not None:
-                # the best `keep` restarts of each output run on;
-                # non-finite restarts sort last
-                order = np.argsort(np.where(np.isfinite(fun), fun, np.inf), axis=1)[:, :keep]
-                cur = np.take_along_axis(xs, order[:, :, None], axis=1)
+            with _phase("stage", "stage{}".format(stage), drawn.seconds if stage == 0 else 0.0,
+                        stage=stage):
+                fun, xs = _run_fit_chunked(ems, cur, iters, gtol, ftol, ladder, mesh)
+                if keep is not None:
+                    # the best `keep` restarts of each output run on;
+                    # non-finite restarts sort last
+                    order = np.argsort(np.where(np.isfinite(fun), fun, np.inf),
+                                       axis=1)[:, :keep]
+                    cur = np.take_along_axis(xs, order[:, :, None], axis=1)
 
         # outputs with no finite restart: rerun from their starts with the
         # full ladder before declaring them unfit
         failed = [r for r in range(G) if not np.isfinite(fun[r]).any()]
         rescue = {}
         if failed and em0.nugget_type == "adaptive" and ladder is not False:
-            fun_f, xs_f = _run_fit_chunked([ems[r] for r in failed], starts[failed],
-                                           maxiter, gtol, ftol, False, mesh)
-            for j, r in enumerate(failed):
-                idx = _best(fun_f[j])
-                if idx is not None:
-                    rescue[r] = xs_f[j, idx]
-            mark("rescue")
+            with _phase("rescue", "rescue"):
+                fun_f, xs_f = _run_fit_chunked([ems[r] for r in failed], starts[failed],
+                                               maxiter, gtol, ftol, False, mesh)
+                for j, r in enumerate(failed):
+                    idx = _best(fun_f[j])
+                    if idx is not None:
+                        rescue[r] = xs_f[j, idx]
 
-        fit_rows, best_raw = [], []
-        for row, em in enumerate(ems):
-            idx = _best(fun[row])
-            if idx is not None:
-                best_raw.append(xs[row, idx])
-            elif row in rescue:
-                best_raw.append(rescue[row])
+        with _phase("refit", "refit"):
+            fit_rows, best_raw = [], []
+            for row, em in enumerate(ems):
+                idx = _best(fun[row])
+                if idx is not None:
+                    best_raw.append(xs[row, idx])
+                elif row in rescue:
+                    best_raw.append(rescue[row])
+                else:
+                    em.theta = None
+                    continue
+                fit_rows.append(global_idx[row])
+            # the winners' artifacts, with the full ladder, in batched gp_fit calls
+            if mesh is None:
+                gp._fit_lanes(fit_rows, best_raw)
             else:
-                em.theta = None
-                continue
-            fit_rows.append(global_idx[row])
-        # the winners' artifacts, with the full ladder, in batched gp_fit calls
-        if mesh is None:
-            gp._fit_lanes(fit_rows, best_raw)
-        else:
-            parts = split_rows(len(fit_rows), mesh.shape[mesh.axis_names[0]])
-            for fits in map_shards(mesh, lambda k, d: gp._lane_artifacts(
-                    fit_rows[parts[k]], best_raw[parts[k]], device=d), n_items=len(parts)):
-                gp._install(fits)
-        mark("refit")
+                parts = split_rows(len(fit_rows), mesh.shape[mesh.axis_names[0]])
+                for fits in map_shards(mesh, lambda k, d: gp._lane_artifacts(
+                        fit_rows[parts[k]], best_raw[parts[k]], device=d), n_items=len(parts)):
+                    gp._install(fits)
     return gp
 
 
@@ -359,40 +381,41 @@ def fit_GP_MAP(*args, n_tries=15, theta0=None, method="L-BFGS-B", skip_failures=
     ignores it with a warning, as in ``mogp_tpu``.
     """
     check_mesh(mesh, across_processes=True)
-    if len(args) == 1:
-        gp = args[0]
-        if isinstance(gp, MultiOutputGP):
-            gp = _fit_MOGP_MAP(gp, n_tries, theta0, method, refit, mesh, **kwargs)
-        elif isinstance(gp, GaussianProcessBase):
-            if mesh is not None:
-                warnings.warn("mesh sharding applies to MultiOutputGP fits; ignoring mesh "
-                              "for a single GP")
-            gp = _fit_single_GP_MAP(gp, n_tries, theta0, method, **kwargs)
-        else:
-            raise TypeError(
-                "single arg to fit_GP_MAP must be a GaussianProcess or MultiOutputGP instance"
-            )
-    elif len(args) < 2:
-        raise TypeError("missing required inputs/targets arrays to GaussianProcess")
-    else:
-        gp_kwargs = {key: kwargs.pop(key) for key in _GP_KWARGS if key in kwargs}
-        try:
-            gp = GaussianProcess(*args, **gp_kwargs)
-            gp = _fit_single_GP_MAP(gp, n_tries, theta0, method, **kwargs)
-        except AssertionError:
-            try:
-                gp = MultiOutputGP(*args, **gp_kwargs)
+    with metrics.span("fitting.fit_GP_MAP"):
+        if len(args) == 1:
+            gp = args[0]
+            if isinstance(gp, MultiOutputGP):
                 gp = _fit_MOGP_MAP(gp, n_tries, theta0, method, refit, mesh, **kwargs)
-            except AssertionError:
-                raise ValueError("Bad values for *args in fit_GP_MAP")
-
-    if isinstance(gp, GaussianProcessBase):
-        if gp.theta.get_data() is None:
-            raise RuntimeError("GP fitting failed")
-    elif gp.get_indices_not_fit():
-        failure_string = "Fitting failed for emulators {}".format(gp.get_indices_not_fit())
-        if skip_failures:
-            print(failure_string)
+            elif isinstance(gp, GaussianProcessBase):
+                if mesh is not None:
+                    warnings.warn("mesh sharding applies to MultiOutputGP fits; ignoring mesh "
+                                  "for a single GP")
+                gp = _fit_single_GP_MAP(gp, n_tries, theta0, method, **kwargs)
+            else:
+                raise TypeError(
+                    "single arg to fit_GP_MAP must be a GaussianProcess or MultiOutputGP instance"
+                )
+        elif len(args) < 2:
+            raise TypeError("missing required inputs/targets arrays to GaussianProcess")
         else:
-            raise RuntimeError(failure_string)
+            gp_kwargs = {key: kwargs.pop(key) for key in _GP_KWARGS if key in kwargs}
+            try:
+                gp = GaussianProcess(*args, **gp_kwargs)
+                gp = _fit_single_GP_MAP(gp, n_tries, theta0, method, **kwargs)
+            except AssertionError:
+                try:
+                    gp = MultiOutputGP(*args, **gp_kwargs)
+                    gp = _fit_MOGP_MAP(gp, n_tries, theta0, method, refit, mesh, **kwargs)
+                except AssertionError:
+                    raise ValueError("Bad values for *args in fit_GP_MAP")
+
+        if isinstance(gp, GaussianProcessBase):
+            if gp.theta.get_data() is None:
+                raise RuntimeError("GP fitting failed")
+        elif gp.get_indices_not_fit():
+            failure_string = "Fitting failed for emulators {}".format(gp.get_indices_not_fit())
+            if skip_failures:
+                print(failure_string)
+            else:
+                raise RuntimeError(failure_string)
     return gp

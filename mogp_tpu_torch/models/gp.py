@@ -30,6 +30,7 @@ from ..ops.cholesky import ChoFactor, cholesky_factor
 from ..ops import predict_fused as pf
 from ..ops.kernels import get_kernel
 from ..ops.linalg import dot_hp, marginal_core, marginal_nlp
+from ..utils import metrics
 from .meanfun import design_matrix
 from .params import GPParams, _process_nugget
 from .priors import GPPriors, dist_logp
@@ -194,13 +195,18 @@ def gp_nlp(raw, data: GPData, kernel, nugget_type, reuse_factor=True,
     The lean form: one lower half-solve, no upper sweeps, no prediction
     artifacts.  ``reuse_factor`` / ``sparse_ladder`` / ``progressive_ok``
     go to the adaptive jitter ladder (``ops/cholesky.py``).
+
+    Recorded (``utils/metrics.py``) as the span ``gp.nlp``, the forward's
+    enqueue, and the counter ``gp.nlp_lanes``, the lanes evaluated.
     """
-    n_corr, Kinv, _, core = _factor_K(
-        raw, data, kernel, nugget_type, reuse_factor=reuse_factor,
-        sparse_ladder=sparse_ladder, progressive_ok=progressive_ok,
-    )
-    logpost = marginal_nlp(core, Kinv, data.mean_logdet_cov, data.n_coeff)
-    return logpost - _prior_logp(data, raw, n_corr, nugget_type)
+    metrics.count("gp.nlp_lanes", raw.shape[0])
+    with metrics.span("gp.nlp"):
+        n_corr, Kinv, _, core = _factor_K(
+            raw, data, kernel, nugget_type, reuse_factor=reuse_factor,
+            sparse_ladder=sparse_ladder, progressive_ok=progressive_ok,
+        )
+        logpost = marginal_nlp(core, Kinv, data.mean_logdet_cov, data.n_coeff)
+        return logpost - _prior_logp(data, raw, n_corr, nugget_type)
 
 
 @torch.no_grad()

@@ -27,6 +27,10 @@ import threading
 import time
 from pathlib import Path
 
+# guards every wrapper's launch counter; it lives with the program's recorder
+# of spans and counters, which it guards too
+from ..utils.metrics import count_lock
+
 __all__ = ["library", "KernelError", "NVCC_FLAGS", "count_lock"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -40,10 +44,6 @@ NVCC_FLAGS = (
 
 _lib = None
 _lib_lock = threading.Lock()
-
-# guards every wrapper's launch counter: shards of a mesh of several cards
-# launch from threads of their own (parallel/mesh.py::map_shards)
-count_lock = threading.Lock()
 
 
 class KernelError(RuntimeError):

@@ -43,6 +43,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import metrics
 from .cholesky_batched import cholesky_batched
 
 __all__ = [
@@ -64,9 +65,14 @@ PROGRESSIVE_LADDER_MIN_N = 1024
 
 def _factor(A):
     """The routed Cholesky (K2 or blocked) over any leading shape ``(..., n,
-    n)``, outside autograd."""
+    n)``, outside autograd.  Counts (``utils/metrics.py``) the matrices it
+    factors, ``chol.matrices`` (none of 0 x 0, such as a zero mean's),
+    whichever kernel the route takes."""
     n = A.shape[-1]
-    return cholesky_batched(A.reshape(A.shape[:-2].numel(), n, n).contiguous()).reshape(A.shape)
+    batch = A.shape[:-2].numel()
+    if n:
+        metrics.count("chol.matrices", batch)
+    return cholesky_batched(A.reshape(batch, n, n).contiguous()).reshape(A.shape)
 
 
 def _chol_bwd(L, L_bar):

@@ -9,9 +9,9 @@ the training size, and the refit and the mean algebra go through it too.
 
 * On a CUDA tensor it launches ``csrc/cholesky_batched.cu`` (built at first
   use by ``ops/_build.py``) and adds one to :data:`launches`; under CUDA
-  graph capture it adds one to :data:`recorded` (and to the capturing
-  thread's :func:`recorded_here`) instead, and :func:`replay` counts the
-  launches of each replay.  The counts are kept under
+  graph capture it adds one to the capturing thread's
+  :func:`recorded_here` instead, and :func:`replay` counts the launches of
+  each replay.  The counts are kept under
   ``ops/_build.py::count_lock``: the shards of a mesh of several cards
   launch from threads of their own.  It does not
   catch build or launch errors and never falls back to the plain version.
@@ -41,16 +41,14 @@ __all__ = [
     "BLOCKED_VARIANT",
     "MAX_SHARED_BYTES",
     "launches",
-    "recorded",
     "recorded_here",
     "replay",
 ]
 
 # launches of the CUDA kernel in this process; callers may reset it
 launches = 0
-# calls recorded into CUDA graphs in this process: each launches K2 when
-# its graph replays, and :func:`replay` counts those launches
-recorded = 0
+# calls each thread recorded into CUDA graphs: each launches K2 when its
+# graph replays, and :func:`replay` counts those launches
 _here = threading.local()
 
 # dynamic shared memory one block may opt into on Hopper (227 KB): the
@@ -136,10 +134,9 @@ def cholesky_batched(A):
         raise KernelError(
             "cholesky_batched launch failed: {}".format(lib.mogp_cuda_error_string(err).decode())
         )
-    global launches, recorded
+    global launches
     with count_lock:
         if capturing:
-            recorded += 1
             _here.recorded = recorded_here() + 1
         else:
             launches += 1

@@ -18,11 +18,17 @@ line-search trial after the first -- is any lane still running? -- and
 reads nothing else back.  The objective ``fun(x)`` maps ``(L, P)`` to
 ``(L,)``; its gradient is ``torch.autograd.grad(fun(x).sum(), x)``, which
 keeps lanes independent: a lane whose objective is NaN touches no other.
+
+Spans (``utils/metrics.py``'s recorder): ``lbfgs.sync`` around each of
+those questions, the host blocked on the device; ``lbfgs.grad`` around
+the backward's enqueue.
 """
 
 from typing import NamedTuple
 
 import torch
+
+from ..utils import metrics
 
 __all__ = ["LBFGSResult", "lbfgs_minimize"]
 
@@ -49,7 +55,8 @@ def _value_and_grad(fun, x):
     with torch.enable_grad():
         x = x.detach().requires_grad_(True)
         f = fun(x)
-        (g,) = torch.autograd.grad(f.sum(), x)
+        with metrics.span("lbfgs.grad"):
+            (g,) = torch.autograd.grad(f.sum(), x)
     return f.detach(), g
 
 
@@ -123,7 +130,9 @@ def lbfgs_minimize(fun, x0, maxiter=200, gtol=None, ftol=None, memory=10,
 
     while True:
         running = (it < maxiter) & ~done
-        if not bool(running.any()):
+        with metrics.span("lbfgs.sync"):
+            go_on = bool(running.any())
+        if not go_on:
             break
 
         d = _two_loop(g, S, Y, rho, gamma, n_hist)
@@ -144,8 +153,11 @@ def lbfgs_minimize(fun, x0, maxiter=200, gtol=None, ftol=None, memory=10,
         xt, ft, gt = x, f, g
         for trial in range(max_linesearch):
             searching = ~accepted
-            if trial and not bool(searching.any()):
-                break
+            if trial:
+                with metrics.span("lbfgs.sync"):
+                    go_on = bool(searching.any())
+                if not go_on:
+                    break
             x_new = x + t[:, None] * d
             f_new, g_new = _value_and_grad(fun, x_new)
             armijo = f_new <= f + c1 * t * gd

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..utils import metrics
 
 __all__ = ["DeviceMesh", "auto_mesh", "shard_leading", "replicate", "init_distributed"]
 
@@ -344,7 +345,9 @@ def map_shards(mesh, fn, n_items=None):
     a thread of its own under ``torch.cuda.device(device_k)``, with the
     caller's grad mode; otherwise one after another.  ``n_items`` limits
     the calls to the first ``n_items`` shards (fewer items than shards).
-    Every call's exception is raised in the caller.
+    Every call's exception is raised in the caller.  Spans that a call
+    opens on a thread of its own name the caller's open span as their
+    parent (``utils/metrics.py``).
 
     On a mesh that spans processes (:attr:`DeviceMesh.spans_processes`)
     this process calls ``fn`` for its own shards only, then every process
@@ -363,8 +366,14 @@ def map_shards(mesh, fn, n_items=None):
 
     def run():
         if mesh.threaded and len(mine) > 1:
+            caller = metrics.current_span()
+
+            def adopted(*args):
+                with metrics.adopt(caller):
+                    return _on_device(*args)
+
             with ThreadPoolExecutor(max_workers=len(mine)) as pool:
-                futures = [pool.submit(_on_device, devices[k], grad, fn, k, devices[k])
+                futures = [pool.submit(adopted, devices[k], grad, fn, k, devices[k])
                            for k in mine]
                 return [f.result() for f in futures]
         return [_on_device(devices[k], grad, fn, k, devices[k]) for k in mine]

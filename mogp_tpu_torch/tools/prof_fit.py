@@ -12,7 +12,9 @@ It prints, one labelled line each:
 1. ``fit[k2]`` / ``fit[plain]``: four timed fits from seed 1, in the order
    K2, plain, plain, K2, the plain ones with ``cholesky_batched_plain`` in
    place of K2 inside the fit; with objective evaluations and lanes per
-   fit, K2 launches and the phase times.
+   fit (the program's own span ``gp.nlp`` and counter ``gp.nlp_lanes``,
+   read under ``utils.metrics.recording()``, as the benchmark reads them),
+   K2 launches and the phase times.
 2. ``objective``: one value + gradient, and one value, at the 960 lanes
    of the first race stage (CUDA events).
 3. ``memory``: peak device memory above the starting allocation, and the
@@ -23,9 +25,10 @@ It prints, one labelled line each:
    (``MultiOutputGP._fit_lanes``).  ``models/fitting.py``'s
    ``_LANE_MATRICES`` is sized from these.
 4. ``profile``: ``torch.profiler`` tables of five evaluations and of one
-   whole fit; the fit's device time (the sum over device kernels), and
-   its busy share against the profiled fit's wall time and against the
-   mean of the unprofiled K2 fits above (the profiler slows the host).
+   whole fit, and the profiled fit's wall time against the mean of the
+   unprofiled K2 fits above (the profiler slows the host).  A busy share
+   is not printed: a sum of kernel times counts overlapping streams twice
+   (``portbench/pbcore/trace.py`` takes their union).
 """
 
 import os
@@ -45,6 +48,7 @@ from mogp_tpu_torch.models import fitting  # noqa: E402
 from mogp_tpu_torch.models import gp as tgp  # noqa: E402
 from mogp_tpu_torch.ops import cholesky as tchol  # noqa: E402
 from mogp_tpu_torch.ops import cholesky_batched as kb  # noqa: E402
+from mogp_tpu_torch.utils import metrics  # noqa: E402
 
 
 def _peak_bytes(fn):
@@ -72,34 +76,27 @@ def main():
     np.random.seed(0)
     mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=N_TRIES, maxiter=MAXITER)
 
-    calls = {"n": 0, "lanes": 0}
-    real_nlp = fitting.gp_nlp
-
-    def counting(raw, *args, **kwargs):
-        calls["n"] += 1
-        calls["lanes"] += raw.shape[0]
-        return real_nlp(raw, *args, **kwargs)
-
     k2_seconds = []
 
     def timed_fit(label):
         torch.cuda.synchronize()
         np.random.seed(1)
-        calls["n"] = calls["lanes"] = 0
+        metrics.clear()
         kb.launches = 0
         t0 = time.perf_counter()
-        mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=N_TRIES, refit=True, maxiter=MAXITER)
-        torch.cuda.synchronize()
+        with metrics.recording():
+            mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=N_TRIES, refit=True, maxiter=MAXITER)
+            torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         nlp = np.mean([em.current_logpost for em in mgp.emulators])
         print("fit[{}] {} s = {} fits/s; objective evaluations {} (lanes {}); K2 launches {}; "
-              "phases {}; mean NLP {}".format(label, dt, N_OUTPUTS / dt, calls["n"],
-                                               calls["lanes"], kb.launches,
+              "phases {}; mean NLP {}".format(label, dt, N_OUTPUTS / dt,
+                                               metrics.recorder.counts["gp.nlp"],
+                                               metrics.counters()["gp.nlp_lanes"], kb.launches,
                                                fitting.last_phase_times, nlp), flush=True)
         if label == "k2":
             k2_seconds.append(dt)
 
-    fitting.gp_nlp = counting
     real_chol = tchol.cholesky_batched
     try:
         for label in ("k2", "plain", "plain", "k2"):
@@ -107,7 +104,7 @@ def main():
             timed_fit(label)
     finally:
         tchol.cholesky_batched = real_chol
-        fitting.gp_nlp = real_nlp
+    metrics.clear()
 
     em0 = mgp.emulators[0]
     n = em0.n
@@ -148,7 +145,6 @@ def main():
         print("memory: {} at {} lanes: peak {} GB above the start = {} (n, n) matrices per "
               "lane".format(label, count, peak / 1e9, peak / (count * matrix)), flush=True)
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -166,14 +162,11 @@ def main():
         mogp_tpu_torch.fit_GP_MAP(mgp, n_tries=N_TRIES, refit=True, maxiter=MAXITER)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    table = prof.key_averages()
-    device_ms = sum(e.self_device_time_total for e in table
-                    if e.device_type == DeviceType.CUDA) / 1e3
-    plain_wall_ms = 1e3 * float(np.mean(k2_seconds))
-    print("profile: one fit: wall {} ms, device time {} ms, device busy {} % of it, {} % of "
-          "the unprofiled fit's {} ms".format(wall_ms, device_ms, 100 * device_ms / wall_ms,
-                                             100 * device_ms / plain_wall_ms, plain_wall_ms))
-    print(table.table(sort_by="self_cuda_time_total", row_limit=25, max_name_column_width=60))
+    metrics.clear()   # the profiled fit's spans: read here by nothing
+    print("profile: one fit: wall {} ms against the unprofiled fit's {} ms".format(
+        wall_ms, 1e3 * float(np.mean(k2_seconds))))
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25,
+                                    max_name_column_width=60))
     return 0
 
 

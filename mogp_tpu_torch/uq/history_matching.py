@@ -19,6 +19,12 @@ over the mesh: each device runs the device sweep on its consecutive share
 of them and the top-k merge is exact; the host path predicts through
 ``parallel.sharded_predict`` / ``sharded_predict_mogp``.
 
+Spans (``utils/metrics.py``'s recorder): ``hm.get_implausibility`` is the
+root of each wave; beneath it, on the device sweep, ``hm.inputs`` (the
+host's handling of the query points and their copy to the device),
+``hm.results`` (the wait for a group's top-k and its copy back) and
+``hm.rank_select`` (the rank selection on the host).
+
 Known reference quirk handled differently: with explicit multi-output
 ``expectations``, the reference sets ``ncoords`` from
 ``expectations[0].shape[0]`` (``HistoryMatching.py:649``), which is the
@@ -32,6 +38,7 @@ import torch
 from ..models.gp import GaussianProcessBase, PredictResult
 from ..models.mogp import MultiOutputGPBase
 from ..parallel.mesh import check_mesh, map_shards, split_rows
+from ..utils import metrics
 
 __all__ = ["HistoryMatching"]
 
@@ -142,42 +149,43 @@ class HistoryMatching:
         ``rank`` selects the rank-th largest per-output implausibility as
         the multi-output score (0 = maximum, 1 = second largest, ...).
         """
-        if not self.check_obs(self.obs):
-            raise ValueError(
-                "implausibility calculation requires that the observation "
-                "value is set. This can be done using the set_obs method."
+        with metrics.span("hm.get_implausibility", points=self.ncoords):
+            if not self.check_obs(self.obs):
+                raise ValueError(
+                    "implausibility calculation requires that the observation "
+                    "value is set. This can be done using the set_obs method."
+                )
+            assert np.all(np.asarray(discrepancy) >= 0.0), (
+                "Model discrepancy variance cannot be negative"
             )
-        assert np.all(np.asarray(discrepancy) >= 0.0), (
-            "Model discrepancy variance cannot be negative"
-        )
-        discrepancy = np.atleast_1d(discrepancy)
+            discrepancy = np.atleast_1d(discrepancy)
 
-        if self._device_sweep_applies():
-            self.I = self._device_implausibility(discrepancy, rank)
+            if self._device_sweep_applies():
+                self.I = self._device_implausibility(discrepancy, rank)
+                return self.I
+
+            expectations = self._select_expectations()
+
+            n_obs = self.get_n_obs()
+            assert n_obs == np.atleast_2d(expectations[0]).shape[0]
+            assert n_obs == np.atleast_2d(expectations[1]).shape[0]
+
+            if n_obs == 1:
+                rank = 0
+            assert rank >= 0, "rank must be a non-negative integer"
+            assert rank < n_obs, "rank must be less than the number of observations"
+
+            means = np.atleast_2d(np.asarray(expectations[0]))
+            variances = np.atleast_2d(np.asarray(expectations[1]))
+
+            Vs = np.zeros((n_obs, self.ncoords))
+            Vs += variances
+            Vs += discrepancy[:, np.newaxis]
+            Vs += self.obs[1][:, np.newaxis]
+            I = np.abs(self.obs[0][:, np.newaxis] - means) / np.sqrt(Vs)
+            # rank-k selection in O(n) via partition (HistoryMatching.py:279-286)
+            self.I = np.partition(I, n_obs - rank - 1, axis=0)[n_obs - rank - 1]
             return self.I
-
-        expectations = self._select_expectations()
-
-        n_obs = self.get_n_obs()
-        assert n_obs == np.atleast_2d(expectations[0]).shape[0]
-        assert n_obs == np.atleast_2d(expectations[1]).shape[0]
-
-        if n_obs == 1:
-            rank = 0
-        assert rank >= 0, "rank must be a non-negative integer"
-        assert rank < n_obs, "rank must be less than the number of observations"
-
-        means = np.atleast_2d(np.asarray(expectations[0]))
-        variances = np.atleast_2d(np.asarray(expectations[1]))
-
-        Vs = np.zeros((n_obs, self.ncoords))
-        Vs += variances
-        Vs += discrepancy[:, np.newaxis]
-        Vs += self.obs[1][:, np.newaxis]
-        I = np.abs(self.obs[0][:, np.newaxis] - means) / np.sqrt(Vs)
-        # rank-k selection in O(n) via partition (HistoryMatching.py:279-286)
-        self.I = np.partition(I, n_obs - rank - 1, axis=0)[n_obs - rank - 1]
-        return self.I
 
     def _device_sweep_applies(self):
         """Whether :meth:`get_implausibility` takes the device sweep: a
@@ -217,7 +225,8 @@ class HistoryMatching:
         disc_full = np.broadcast_to(
             np.atleast_1d(discrepancy), (n_obs,)
         ).astype(np.float64)
-        coords = gp._process_inputs(self.coords)
+        with metrics.span("hm.inputs"):
+            coords = gp._process_inputs(self.coords)
         if self.mesh is None:
             allk = self._sweep_topk(coords, disc_full, rank + 1)
         else:
@@ -225,18 +234,25 @@ class HistoryMatching:
             allk = np.concatenate(map_shards(
                 self.mesh, lambda i, d: self._sweep_topk(coords[parts[i]], disc_full, rank + 1, d),
                 n_items=len(parts)), axis=1)
-        return np.partition(allk, allk.shape[0] - rank - 1, axis=0)[
-            allk.shape[0] - rank - 1
-        ]
+        with metrics.span("hm.rank_select"):
+            return np.partition(allk, allk.shape[0] - rank - 1, axis=0)[
+                allk.shape[0] - rank - 1
+            ]
 
     def _sweep_topk(self, coords, disc_full, k, device=None):
         """Each emulator group's top-``k`` implausibilities at ``coords``,
         stacked ``(sum of the groups' k, m)`` float64, swept on ``device``
         (default the emulators')."""
         tops = []
-        for rows, tiles, scale, shift in self.gp._predict_groups(
-            coords, list(range(self.gp.n_emulators)), device=device
-        ):
+        groups = self.gp._predict_groups(coords, list(range(self.gp.n_emulators)),
+                                         device=device)
+        while True:
+            # a group's next item makes its query tensor on the device
+            with metrics.span("hm.inputs"):
+                group = next(groups, None)
+            if group is None:
+                break
+            rows, tiles, scale, shift = group
             # I is the same in a standardized emulator's own units, with
             # the observations mapped there in float64
             em0 = self.gp.emulators[rows[0]]
@@ -249,7 +265,8 @@ class HistoryMatching:
                 tiles, to_device((self.obs[0][rows] - shift) / scale),
                 to_device((self.obs[1][rows] + disc_full[rows]) / scale**2), min(k, len(rows)),
             )
-            tops.append(top.to("cpu", torch.float64).numpy())
+            with metrics.span("hm.results"):
+                tops.append(top.to("cpu", torch.float64).numpy())
         return np.concatenate(tops, axis=0)
 
     def get_NROY(self, discrepancy=0.0, rank=1):

@@ -24,9 +24,6 @@ import warnings
 import numpy as np
 import torch
 
-from ..models.gp import GaussianProcess
-from ..models.mogp import MultiOutputGP
-
 __all__ = [
     "atomic_savez",
     "config_tag",
@@ -160,6 +157,9 @@ def save_gp(gp, filename):
 
 def load_gp(filename, device=None, dtype=None):
     """Restore a GP checkpoint onto ``device``; re-fits if it was fit."""
+    # the models import this package (``utils.metrics``): import them at use
+    from ..models.gp import GaussianProcess
+
     f = _load_npz(filename)
     config = json.loads(str(f["config"]))
     gp = GaussianProcess(
@@ -197,6 +197,8 @@ def save_mogp(mgp, filename):
 def load_mogp(filename, device=None, dtype=None):
     """Restore a MultiOutputGP checkpoint onto ``device``; the fitted
     emulators are re-fit as ``MultiOutputGP.fit`` fits them."""
+    from ..models.mogp import MultiOutputGP
+
     f = _load_npz(filename)
     configs = [json.loads(str(c)) for c in f["configs"]]
     mgp = MultiOutputGP(
