@@ -46,7 +46,13 @@ Phases (any failure raises, so the exit code is not 0):
    fit from seed 0, then the timed refit from seed 1.  All 64 outputs must
    fit; the winners of the first 4 outputs, re-evaluated in float64, must
    be within 0.25 nats on average of the same seeded fit run by the port
-   on the CPU in float64.
+   on the CPU in float64.  The fit's first race stage runs again from 960
+   seeded starts through the fitting layer's CUDA graphs (captured by the
+   warm-up fit) and through the eager ``lbfgs_minimize``: ``x``, ``fun``,
+   the iterations and the convergence flags must be bit-identical, and
+   the captured value and gradient, replayed twice, must equal the eager
+   ``gp_nlp`` and its autograd; captures, replays and the graphs' memory
+   are printed.
 5. The large-n GP (``benchmarks/benchmark_large_n.py``, ``bench.py``'s
    ``large_n`` metric): one ``GaussianProcess`` (D = 8,
    ``nugget="adaptive"``, float32), through ``tools/large_n.py`` at n =
@@ -1483,7 +1489,88 @@ def phase_fit(mogp_tpu_torch, km, kb, label, keep):
         raise AssertionError("the card's MAP fit is worse than the float64 reference")
     keep["fit_thetas"] = [em.theta.get_data() for em in mgp.emulators]
     keep["fit_nlp_cpu"] = nlp_cpu
+    check_graphed_fit(mogp_tpu_torch, mgp)
     return launches, mgp
+
+
+def check_graphed_fit(mogp_tpu_torch, mgp):
+    """Phase 4's check of the fitting layer's CUDA graphs (``ops/lbfgs.py``):
+    the first race stage of the fit above, from 960 seeded starts, through
+    ``fitting._minimize`` (graphed: the warm-up fit captured it) and through
+    the eager ``lbfgs_minimize`` of ``gp_nlp``, bit for bit; the captured
+    value and gradient, replayed twice, against the eager ``gp_nlp`` and its
+    autograd; the captures, replays and the graphs' memory (reserved
+    device memory with the captured locksteps less without them)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from mogp_tpu_torch.models import fitting
+    from mogp_tpu_torch.models import gp as tgp
+    from mogp_tpu_torch.ops import graphs, lbfgs
+
+    em0 = mgp.emulators[0]
+    if not fitting._graphed("cuda", em0.n, em0._dtype, "single", em0.nugget_type):
+        raise AssertionError("the headline fit is not on the graphed path")
+    lanes = torch.arange(N_OUTPUTS, device="cuda").repeat_interleave(N_TRIES)
+    data = tgp.take_lanes(tgp.cat_lanes([em._data for em in mgp.emulators]), lanes)
+    np.random.seed(2)
+    starts = em0._tensor(np.concatenate([em.priors.sample_n(N_TRIES) for em in mgp.emulators]))
+    iters = fitting._race_plan(N_TRIES, MAXITER, True)[0][0]
+
+    def nlp(raw):
+        return tgp.gp_nlp(raw, data, em0.kernel, "adaptive", sparse_ladder="single",
+                          progressive_ok=False)
+
+    captures, replays = graphs.captures, graphs.replays
+    t0 = time.perf_counter()
+    res_g = fitting._minimize(starts, data, em0.kernel, "adaptive", iters, None, None, "single")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res_e = lbfgs.lbfgs_minimize(nlp, starts, maxiter=iters)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    captured, replayed = graphs.captures - captures, graphs.replays - replays
+
+    def gap(a, b):
+        same = torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+            torch.nan_to_num(a), torch.nan_to_num(b))
+        finite = torch.isfinite(a) & torch.isfinite(b)
+        return same, float((a - b)[finite].abs().max()) if finite.any() else 0.0
+
+    same = {f: gap(getattr(res_g, f).double(), getattr(res_e, f).double())
+            for f in ("x", "fun", "n_iter", "converged")}
+
+    # the captured value and gradient, replayed twice
+    entry = next(e for e in lbfgs._entries() if e.ls.x.shape[0] == len(starts))
+    entry.load(data, starts)
+    f_e, g_e = lbfgs._value_and_grad(nlp, starts)
+    replay_same = []
+    for _ in range(2):
+        entry.ls.f_in.zero_()
+        entry.ls.g_in.zero_()
+        entry.steps.objective()
+        replay_same.append(gap(entry.ls.f_in, f_e)[0] and gap(entry.ls.g_in, g_e)[0])
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with_graphs = torch.cuda.memory_reserved()
+    n_entries = len(lbfgs._entries())
+    del entry
+    lbfgs.clear_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    pools = with_graphs - torch.cuda.memory_reserved()
+    ok = all(v[0] for v in same.values()) and all(replay_same) and captured == 0
+    print("phase 4: the first race stage ({} lanes, {} iterations) graphed {} s, eager {} s; "
+          "bit-identical (largest difference): {}; captures {}, replays {} in it; the captured "
+          "value and gradient replayed twice equal eager gp_nlp and autograd: {}; {} captured "
+          "locksteps hold {} GB of device memory: {}".format(
+              len(starts), iters, t1 - t0, t2 - t1, same, captured, replayed, replay_same,
+              n_entries, pools / 1e9, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("the graphed lockstep L-BFGS differs from the eager one")
 
 
 def _unpermuted(errors):

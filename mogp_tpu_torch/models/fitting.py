@@ -17,6 +17,11 @@ together.  The schedule is the JAX package's:
 * the winner of each output is refit with the full ladder by the batched
   ``gp_fit`` (``MultiOutputGP._fit_lanes``).
 
+On a card, at K2's sizes and on the one-rung ladder (``_graphed``), a
+stage's lockstep L-BFGS runs from CUDA graphs, captured at the first stage
+of its shapes and replayed at every later one (``ops/lbfgs.py``); the
+rescue, the refit and the blocked route run eagerly.
+
 With ``mesh=`` (a ``parallel.DeviceMesh``) every stage, the rescue and the
 refit split each chunk's outputs over the mesh, whole outputs per shard
 (an output's restarts stay together); the starts are drawn on the host
@@ -48,7 +53,8 @@ import warnings
 import numpy as np
 import torch
 
-from ..ops.lbfgs import lbfgs_minimize
+from ..ops import cholesky_batched as kb
+from ..ops.lbfgs import Capturable, lbfgs_minimize
 from ..parallel import mesh as pmesh
 from ..parallel.mesh import check_mesh, map_shards, split_rows, to_device
 from ..utils import metrics
@@ -89,14 +95,29 @@ def _max_lanes(em):
     return max(1, _CHUNK_BYTES // (_LANE_MATRICES * em.n * em.n * item))
 
 
+def _graphed(device_type, n, dtype, ladder, nugget_type):
+    """Whether a stage's lockstep L-BFGS runs from CUDA graphs
+    (``ops/lbfgs.py``): on a card, where K2 factors the (n, n) matrices,
+    on the one-rung ("single") ladder, and not with the pivoted nugget.
+    The rest stays eager: the blocked route's objective waits at syncs of
+    its own, the sparse and full ladders make their rungs from host
+    scalars, and the pivot search is a loop of n steps that no capture has
+    been shown to take."""
+    return (device_type == "cuda" and kb.route(n, dtype) == "k2" and ladder == "single"
+            and nugget_type != "pivot")
+
+
 def _minimize(starts, data, kernel, nugget_type, maxiter, gtol, ftol, ladder):
     """One batched L-BFGS over lanes: ``starts`` ``(L, P)``, ``data`` a
-    ``GPData`` of ``L`` lanes."""
-    return lbfgs_minimize(
-        lambda raw: gp_nlp(raw, data, kernel, nugget_type, sparse_ladder=ladder,
-                           progressive_ok=False),
-        starts, maxiter=maxiter, gtol=gtol, ftol=ftol,
-    )
+    ``GPData`` of ``L`` lanes; from CUDA graphs where :func:`_graphed`."""
+    def nlp(raw, d):
+        return gp_nlp(raw, d, kernel, nugget_type, sparse_ladder=ladder, progressive_ok=False)
+
+    if _graphed(starts.device.type, data.inputs.shape[-2], starts.dtype, ladder, nugget_type):
+        fun = Capturable(nlp, data, key=(kernel, nugget_type, ladder), span="gp.nlp")
+    else:
+        fun = lambda raw: nlp(raw, data)  # noqa: E731
+    return lbfgs_minimize(fun, starts, maxiter=maxiter, gtol=gtol, ftol=ftol)
 
 
 def _host(t):

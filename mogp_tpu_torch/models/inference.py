@@ -27,14 +27,12 @@ split and its Philox stream is keyed by its global (output, chain) index,
 so it draws the same numbers wherever it runs.
 """
 
-import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..ops import cholesky_batched as kb
-from ..ops import hmc
+from ..ops import graphs, hmc
 from ..parallel.mesh import check_mesh, map_shards, split_rows, to_device
 from ..utils import checkpoint as _ckpt
 from .fitting import _LADDER_MODES
@@ -163,22 +161,15 @@ def _eager_potential(data, kernel, nugget_type):
     return pg
 
 
-# one CUDA graph capture at a time in the process: the shards of a mesh of
-# several cards capture from threads of their own, and a capture's set-up
-# (a synchronize, the allocator's cache emptied, the device's random-number
-# generator registered with the graph) must not meet another capture
-_capture_lock = threading.Lock()
-
-
 class _GraphedPotential:
     """The potential on the card, captured once into a CUDA graph and
-    replayed for every evaluation.
+    replayed for every evaluation (``ops/graphs.py``).
 
     One eager value and gradient at n = 210 is ~400 kernel launches, which
     the host enqueues slower than the card runs them (5.0 ms a call at 64
     lanes, 13% of it device time; ``tools/prof_inference.py``).  A replay
-    runs the same kernels from one host call; K2's wrapper counts its
-    launches there (``ops/cholesky_batched.py::replay``).  The lanes' shape is fixed at the first call.
+    runs the same kernels from one host call.  The lanes' shape is fixed at
+    the first call.
     """
 
     def __init__(self, eager):
@@ -187,34 +178,15 @@ class _GraphedPotential:
 
     def __call__(self, q):
         if self._graph is None:
-            self._capture(q)
+            self._q = q.detach().clone()
+            self._graph, (self._u, self._g) = graphs.capture(lambda: self._eager(self._q),
+                                                             q.device)
         elif q.shape != self._q.shape:
             raise ValueError("a captured potential takes {} positions, got {}".format(
                 tuple(self._q.shape), tuple(q.shape)))
         self._q.copy_(q)
-        kb.replay(self._graph, self._k2)
+        self._graph.replay()
         return self._u.clone(), self._g.clone()
-
-    def _capture(self, q):
-        with _capture_lock:
-            self._capture_locked(q)
-
-    def _capture_locked(self, q):
-        self._q = q.detach().clone()
-        side = torch.cuda.Stream(device=q.device)
-        side.wait_stream(torch.cuda.current_stream(q.device))
-        with torch.cuda.stream(side):
-            for _ in range(2):   # warm-up outside capture (library handles, workspaces)
-                self._eager(self._q)
-        torch.cuda.current_stream(q.device).wait_stream(side)
-        self._graph = torch.cuda.CUDAGraph()
-        before = kb.recorded_here()
-        # on a stream of q's device: torch.cuda.graph's default capture
-        # stream is one for the process, made on the device of its first
-        # use; thread_local: the other shards' threads allocate meanwhile
-        with torch.cuda.graph(self._graph, stream=side, capture_error_mode="thread_local"):
-            self._u, self._g = self._eager(self._q)
-        self._k2 = kb.recorded_here() - before
 
 
 def gp_potential(data, kernel, nugget_type):

@@ -252,7 +252,8 @@ def jitter_ladder(A, maxtries=5, sparse_ladder=False, jitter_mask=None):
                      / torch.clamp_min(torch.sum(mask, dim=-1), 1.0))[..., None]
     if sparse_ladder == "single":
         # a Python scalar: no host-to-device copy, so the potential that
-        # NUTS and VI evaluate can be captured in a CUDA graph
+        # NUTS and VI evaluate, and the MAP fit's objective, can be
+        # captured in CUDA graphs
         return mean_diag * 1e-6
     if sparse_ladder:
         return mean_diag * torch.tensor([0.0, 1e-6, 1e-2], dtype=dtype, device=device)

@@ -9,14 +9,19 @@ The problem is ``chip_smoke.py``'s phase 4: a 64-output ``MultiOutputGP``
 ``fit_GP_MAP(n_tries=15, maxiter=50)`` after a warm-up fit from seed 0.
 It prints, one labelled line each:
 
-1. ``fit[k2]`` / ``fit[plain]``: four timed fits from seed 1, in the order
-   K2, plain, plain, K2, the plain ones with ``cholesky_batched_plain`` in
-   place of K2 inside the fit; with objective evaluations and lanes per
-   fit (the program's own span ``gp.nlp`` and counter ``gp.nlp_lanes``,
-   read under ``utils.metrics.recording()``, as the benchmark reads them),
-   K2 launches and the phase times.
-2. ``objective``: one value + gradient, and one value, at the 960 lanes
-   of the first race stage (CUDA events).
+1. ``fit[graphed]`` / ``fit[eager]`` / ``fit[plain]``: six timed fits
+   from seed 1, in the order graphed, eager, plain, plain, eager, graphed:
+   the fit as it runs (its lockstep L-BFGS from the CUDA graphs that the
+   warm-up fit captured, ``ops/lbfgs.py``), the same fit with every stage
+   eager (``fitting._graphed`` patched to refuse), and the eager fit with
+   ``cholesky_batched_plain`` in place of K2; with objective evaluations
+   and lanes per fit (the program's own counters ``gp.nlp_lanes``,
+   ``lbfgs.evals_graphed`` and ``lbfgs.evals_eager``, read under
+   ``utils.metrics.recording()``, as the benchmark reads them), K2
+   launches and the phase times.
+2. ``objective``: one value + gradient replayed from the captured graph,
+   one enqueued eagerly, and one value, at the 960 lanes of the first race
+   stage (CUDA events).
 3. ``memory``: peak device memory above the starting allocation, and the
    same as (n, n) float32 matrices per lane, for one value + gradient at
    960 lanes on the one-rung ("single") and the full jitter ladder, for a
@@ -26,11 +31,15 @@ It prints, one labelled line each:
    ``_LANE_MATRICES`` is sized from these.
 4. ``profile``: ``torch.profiler`` tables of five evaluations and of one
    whole fit, and the profiled fit's wall time against the mean of the
-   unprofiled K2 fits above (the profiler slows the host).  A busy share
+   unprofiled graphed fits above (the profiler slows the host).  A busy share
    is not printed: a sum of kernel times counts overlapping streams twice
    (``portbench/pbcore/trace.py`` takes their union).
+5. ``memory``: the device memory that the captured locksteps hold
+   (reserved with them less without them): their graphs' pools and static
+   buffers, which no allocation peak sees once they are captured.
 """
 
+import gc
 import os
 import subprocess
 import sys
@@ -48,6 +57,7 @@ from mogp_tpu_torch.models import fitting  # noqa: E402
 from mogp_tpu_torch.models import gp as tgp  # noqa: E402
 from mogp_tpu_torch.ops import cholesky as tchol  # noqa: E402
 from mogp_tpu_torch.ops import cholesky_batched as kb  # noqa: E402
+from mogp_tpu_torch.ops import lbfgs  # noqa: E402
 from mogp_tpu_torch.utils import metrics  # noqa: E402
 
 
@@ -62,6 +72,15 @@ def _peak_bytes(fn):
     peak = torch.cuda.max_memory_allocated() - base
     del out
     return peak
+
+
+def _reserved():
+    """Device memory the allocator holds once its unused blocks are
+    returned."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
 
 
 def main():
@@ -89,21 +108,24 @@ def main():
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         nlp = np.mean([em.current_logpost for em in mgp.emulators])
-        print("fit[{}] {} s = {} fits/s; objective evaluations {} (lanes {}); K2 launches {}; "
-              "phases {}; mean NLP {}".format(label, dt, N_OUTPUTS / dt,
-                                               metrics.recorder.counts["gp.nlp"],
-                                               metrics.counters()["gp.nlp_lanes"], kb.launches,
-                                               fitting.last_phase_times, nlp), flush=True)
-        if label == "k2":
+        counters = metrics.counters()
+        print("fit[{}] {} s = {} fits/s; objective evaluations {} (lanes {}; graphed {}, "
+              "eager {}); K2 launches {}; phases {}; mean NLP {}".format(
+                  label, dt, N_OUTPUTS / dt, metrics.recorder.counts["gp.nlp"],
+                  counters["gp.nlp_lanes"], counters.get("lbfgs.evals_graphed", 0),
+                  counters.get("lbfgs.evals_eager", 0), kb.launches, fitting.last_phase_times,
+                  nlp), flush=True)
+        if label == "graphed":
             k2_seconds.append(dt)
 
-    real_chol = tchol.cholesky_batched
+    real_chol, real_graphed = tchol.cholesky_batched, fitting._graphed
     try:
-        for label in ("k2", "plain", "plain", "k2"):
-            tchol.cholesky_batched = real_chol if label == "k2" else kb.cholesky_batched_plain
+        for label in ("graphed", "eager", "plain", "plain", "eager", "graphed"):
+            tchol.cholesky_batched = kb.cholesky_batched_plain if label == "plain" else real_chol
+            fitting._graphed = real_graphed if label == "graphed" else lambda *a: False
             timed_fit(label)
     finally:
-        tchol.cholesky_batched = real_chol
+        tchol.cholesky_batched, fitting._graphed = real_chol, real_graphed
     metrics.clear()
 
     em0 = mgp.emulators[0]
@@ -127,8 +149,13 @@ def main():
             return tgp.gp_nlp(raw, data_all, em0.kernel, "adaptive", sparse_ladder="single",
                               progressive_ok=False)
 
-    print("objective at {} lanes: value + gradient {} ms, value {} ms".format(
-        lanes, time_ms(lambda: value_grad("single"), reps=20), time_ms(value, reps=20)))
+    # the first race stage's captured lockstep, made by the fits above
+    entry = next(e for e in lbfgs._entries() if e.ls.x.shape[0] == lanes)
+    entry.load(data_all, raw)
+    print("objective at {} lanes: value + gradient replayed {} ms, eager {} ms; value {} "
+          "ms".format(lanes, time_ms(entry.steps.objective, reps=20),
+                      time_ms(lambda: value_grad("single"), reps=20), time_ms(value, reps=20)))
+    del entry
 
     matrix = n * n * torch.finfo(em0._dtype).bits // 8
     winners = [em.theta.get_data() for em in mgp.emulators]
@@ -167,6 +194,12 @@ def main():
         wall_ms, 1e3 * float(np.mean(k2_seconds))))
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25,
                                     max_name_column_width=60))
+    shapes = sorted(e.ls.x.shape[0] for e in lbfgs._entries())
+    held = _reserved()
+    lbfgs.clear_graphs()
+    pools = held - _reserved()
+    print("memory: the captured locksteps of {} lanes hold {} GB = {} (n, n) matrices per "
+          "lane".format(shapes, pools / 1e9, pools / (sum(shapes) * matrix)), flush=True)
     return 0
 
 

@@ -41,6 +41,7 @@ __all__ = [
     "timed_span",
     "count",
     "recording",
+    "tally",
     "enabled",
     "spans",
     "counters",
@@ -134,7 +135,9 @@ class PhaseTimer:
 # two and record nothing.  On, each span also opens
 # ``torch.profiler.record_function(name)`` under a profiler, which puts it in
 # the profiler's trace on the device events' clock.  Everything stays in
-# memory, until ``clear()``; nothing is written to disk.
+# memory, until ``clear()``; nothing is written to disk.  Inside ``tally()``
+# (a CUDA graph's capture, ``ops/graphs.py``) the thread records no span and
+# its counts go to the tally instead, which each replay of the graph adds.
 
 
 class SpanRecord(NamedTuple):
@@ -173,6 +176,8 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 
 def enabled():
     """Whether the recorder is on for the calling thread."""
+    if getattr(_local, "tally", None) is not None:
+        return False
     return bool(_recording) or _profiler_enabled() or getattr(_local, "adopted", False)
 
 
@@ -244,8 +249,12 @@ def timed_span(name, **attrs):
 
 
 def count(name, n=1):
-    """Add ``n`` to the counter ``name`` while the recorder is on."""
-    if enabled():
+    """Add ``n`` to the counter ``name`` while the recorder is on, or to
+    the open :func:`tally` of the calling thread."""
+    tallied = getattr(_local, "tally", None)
+    if tallied is not None:
+        tallied[name] = tallied.get(name, 0) + n
+    elif enabled():
         with count_lock:
             recorder.counters[name] = recorder.counters.get(name, 0) + n
 
@@ -262,6 +271,19 @@ def recording():
     finally:
         with _switch:
             _recording -= 1
+
+
+@contextlib.contextmanager
+def tally():
+    """Within the block the calling thread records no span, and its counts
+    go to the yielded ``{name: total}``, whether the recorder is on or not:
+    the work of a CUDA graph's capture, which runs nothing, and whose
+    counts each replay adds (``ops/graphs.py``)."""
+    outer, _local.tally = getattr(_local, "tally", None), {}
+    try:
+        yield _local.tally
+    finally:
+        _local.tally = outer
 
 
 def current_span():
