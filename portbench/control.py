@@ -7,9 +7,9 @@ run's result line, whose ``checks`` hold the numbers compared:
 
 * ``--mode sound``: the program as it is (the lower readings);
 * ``--mode control``: the control in the program's place, the plain
-  reference in TF32 (``reference/gp_ref.py``: float32 with TF32 products,
-  the next precision below the configuration's float32; its upper
-  readings);
+  reference that the configuration names in TF32 (``pbcore/cells.py``:
+  float32 with TF32 products, the next precision below the
+  configuration's float32; its upper readings);
 * ``--mode <fault>``: the program with a fault of ``pbcore/faults.py``
   planted under the timed path.
 """

@@ -96,8 +96,8 @@ def compare(cell, res, seed, device, control=False):
                                   descent="winner_above_start" in cell.limits,
                                   probe=res.get("probe")), **checks)
     if control:
-        sweeploop.control_outputs(res, cell.traffic["rank"], device)
-    return sweeploop.check(res, cell.traffic["rank"], device)
+        sweeploop.control_outputs(cell.config, res, cell.traffic["rank"], device)
+    return sweeploop.check(cell.config, res, cell.traffic["rank"], device)
 
 
 def result_line(cell, res, checks, started, trace):

@@ -6,15 +6,16 @@ from the next restart seed of the run's sequence (``Seeds.request``), so
 the parent and a change do the same work on the same seed.  One warm-up
 fit at the cell's own shapes (restart seed 0) is set-up.
 
-After the window the fits are judged against the plain reference
-(``reference/gp_ref.py``), on every emulator of every fit:
+After the window the fits are judged against the plain reference that
+the configuration names (``cells.py``), on every emulator of every fit:
 
 * ``unfit``: emulators left without a finite fit (limit 0);
-* ``nugget_off_ladder``: fitted emulators whose nugget is no rung of the
-  reference's own ladder (limit 0);
+* ``nugget_off_ladder``: fitted emulators whose nugget is none that the
+  reference's model allows at their hyperparameters (the default
+  reference's adaptive nugget: no rung of its own ladder) (limit 0);
 * ``nlp_gap``: the largest gap, in nats, between the program's negative log
   posterior and the reference's in float64 at the program's
-  hyperparameters and rung: the kernel matrix, the jitter ladder, the
+  hyperparameters and nugget: the kernel matrix, the jitter ladder, the
   Cholesky factor, the solves, the priors and the refit;
 * ``unmoved``: fitted emulators whose hyperparameters are one of their own
   restart points, which the reference draws again from the priors and the
@@ -27,7 +28,7 @@ After the window the fits are judged against the plain reference
 * ``winner_above_start``, where the cell's limits name it: the median, over
   the run's fitted emulators, of the reference's negative log posterior at
   the program's winner less the least at the emulator's redrawn restart
-  points (each at the first rung of its own float64 ladder), in nats.  It
+  points (each at the reference's own nugget there, in float64), in nats.  It
   is below 0 where the optimizer descended; a step that never moves, or one
   steered by a wrong gradient, leaves it at 0.  The median, as a random
   best start lies anywhere from a few nats to thousands above the minimum:
@@ -44,7 +45,7 @@ import time
 
 import numpy as np
 
-from . import data, window
+from . import cells, data, window
 from .trace import Tracer
 
 # emulators of a run that the reference polishes, where a cell compares
@@ -52,18 +53,72 @@ from .trace import Tracer
 POLISH = 6
 
 
+# the keys of a configuration's ``model``
+MODEL = ("class", "kernel", "mean", "nugget", "priors", "dtype")
+
+
 def build(config, x, y, device):
-    """The configuration's model on ``device``, before any fit."""
+    """The configuration's model on ``device``, before any fit: the class
+    (``MultiOutputGP`` or ``GaussianProcess``) with every argument that the
+    ``model`` entry states.
+
+    * ``kernel``: the kernel's name;
+    * ``mean``: a formula such as ``"x[0]+x[1]"``; ``"zero"`` or none: no
+      mean function;
+    * ``nugget``: ``"adaptive"``, ``"fit"``, ``"pivot"`` or a number;
+    * ``priors``: ``GPPriors``' arguments, each distribution a list of its
+      class and arguments (``["LogNormalPrior", 1.0, 1.0]``, ``null`` for
+      none): ``{"mean": {"mean": [...], "cov": [...]}, "corr": [one an
+      input], "cov": ..., "nugget": ..., "nugget_type": "fit"}``; none: the
+      port's default priors;
+    * ``dtype``: the torch dtype's name.
+
+    A key it does not know is an error."""
     import torch
 
     import mogp_tpu_torch as mt
 
     m = config["model"]
-    kw = dict(kernel=m["kernel"], nugget=m["nugget"], device=device,
-              dtype=getattr(torch, m["dtype"]))
+    unknown = sorted(set(m) - set(MODEL))
+    if unknown:
+        raise ValueError("unknown model keys {}".format(", ".join(unknown)))
+    if m["class"] not in ("MultiOutputGP", "GaussianProcess"):
+        raise ValueError("unknown model class {!r}".format(m["class"]))
+    kw = {k: m[k] for k in ("kernel", "nugget") if k in m}
+    if isinstance(kw.get("nugget"), (int, float)):
+        kw["nugget"] = float(kw["nugget"])
+    if m.get("mean", "zero") != "zero":
+        kw["mean"] = m["mean"]
+    if "priors" in m:
+        kw["priors"] = _priors(m["priors"])
+    kw.update(device=device, dtype=getattr(torch, m["dtype"]))
     if m["class"] == "MultiOutputGP":
         return mt.MultiOutputGP(x, y, **kw)
     return mt.GaussianProcess(x, y[0], **kw)
+
+
+def _priors(spec):
+    """``GPPriors`` from its JSON spelling (see :func:`build`), built through
+    ``mogp_tpu_torch.Priors``."""
+    from mogp_tpu_torch import Priors
+
+    def dist(d):
+        if d is None:
+            return None
+        cls = getattr(Priors, d[0], None)
+        if not (isinstance(cls, type) and issubclass(cls, Priors.WeakPrior)):
+            raise ValueError("unknown prior distribution {!r}".format(d[0]))
+        return cls(*d[1:])
+
+    kw = dict(spec)
+    if kw.get("mean") is not None:
+        kw["mean"] = Priors.MeanPriors(**kw["mean"])
+    if kw.get("corr") is not None:
+        kw["corr"] = [dist(d) for d in kw["corr"]]
+    for key in ("cov", "nugget"):
+        if key in kw:
+            kw[key] = dist(kw[key])
+    return Priors.GPPriors(**kw)
 
 
 def emulators(model):
@@ -192,73 +247,45 @@ def _blocks(n_lanes, n):
 
 
 def control_outputs(config, records, device):
-    """The control in the program's place: each emulator's rung and
+    """The control in the program's place: each emulator's nugget and
     negative log posterior as the reference gives them in TF32 (float32
     with TF32 products), at the hyperparameters of each fit."""
-    import torch
-
-    from reference import gp_ref as R
-
+    R = cells.reference(config)
     for r in records:
         x, y = data.problem(config, r["data"])
-        X = torch.as_tensor(x, dtype=torch.float32, device=device)
         idx = np.flatnonzero(np.isfinite(r["theta"]).all(1))
-        raw = torch.as_tensor(r["theta"][idx], dtype=torch.float32, device=device)
-        Y = torch.as_tensor(y[idx], dtype=torch.float32, device=device)
-        rungs, nlp = R.adaptive(raw, X, Y, R.default_corr_priors(x), mm=R.tf32_mm)
-        md = R.mean_diag(raw.double(), X.double()).cpu().numpy()
-        r["nlp"][idx] = nlp.double().cpu().numpy()
-        r["nugget"][idx] = [R.LADDER[k] * m if k >= 0 else np.nan for k, m in zip(rungs, md)]
+        r["nugget"][idx], r["nlp"][idx] = R.own_fit(r["theta"][idx], x, y[idx], R.priors(x),
+                                                    device, tf32=True)
 
 
-def _judge(x, y, r, device):
-    """One fit's emulators against the reference: their rung on the
-    reference's own ladder (-1: none) and the reference's negative log
-    posterior at their hyperparameters and rung (NaN where not judged)."""
-    import torch
-
-    from reference import gp_ref as R
-
-    X = torch.as_tensor(x, dtype=torch.float64, device=device)
-    priors = R.default_corr_priors(x)
-    rungs = np.full(len(r["nlp"]), -1)
+def _judge(R, x, y, r, priors, device):
+    """One fit's emulators against the reference ``R``: whether their nugget
+    is one its model allows, and its negative log posterior at their
+    hyperparameters and nugget (NaN where not judged)."""
+    allowed = np.zeros(len(r["nlp"]), dtype=bool)
     ref = np.full(len(r["nlp"]), np.nan)
     idx = np.flatnonzero(np.isfinite(r["theta"]).all(1) & np.isfinite(r["nlp"]))
-    step = _blocks(len(idx), X.shape[0])
+    step = _blocks(len(idx), x.shape[0])
     for b in range(0, len(idx), step):
         lanes = idx[b:b + step]
-        raw = torch.as_tensor(r["theta"][lanes], dtype=torch.float64, device=device)
-        md = R.mean_diag(raw, X).cpu().numpy()
-        rungs[lanes] = [R.rung_of(g, m) for g, m in zip(r["nugget"][lanes], md)]
-        on = rungs[lanes] >= 0
-        if on.any():
-            Y = torch.as_tensor(y[lanes[on]], dtype=torch.float64, device=device)
-            ref[lanes[on]] = R.nlp(raw[torch.as_tensor(on, device=device)], X, Y, priors,
-                                   rungs[lanes[on]].tolist()).cpu().numpy()
-    return rungs, ref
+        allowed[lanes], ref[lanes] = R.judge(r["theta"][lanes], r["nugget"][lanes], x, y[lanes],
+                                             priors, device)
+    return allowed, ref
 
 
-def _best_start(x, y, starts, lanes, priors, device):
+def _best_start(R, x, y, starts, lanes, priors, device):
     """The reference's least negative log posterior ``(E,)`` over the
     restart points ``(E, T, P)`` of the emulators ``lanes``, each point at
-    the first rung of its own ladder that factors in float64 (NaN where no
-    point of an emulator factors, or the emulator is not in ``lanes``)."""
-    import torch
-
-    from reference import gp_ref as R
-
-    X = torch.as_tensor(x, dtype=torch.float64, device=device)
+    its own nugget there in float64 (NaN where no point of an emulator has
+    one, or the emulator is not in ``lanes``)."""
     pairs = [(e, t) for e in np.flatnonzero(lanes) for t in range(starts.shape[1])]
     best = np.full(starts.shape[0], np.inf)
-    step = _blocks(len(pairs), X.shape[0])
+    step = _blocks(len(pairs), x.shape[0])
     for b in range(0, len(pairs), step):
         chunk = pairs[b:b + step]
-        raw = torch.as_tensor(np.stack([starts[e, t] for e, t in chunk]), dtype=torch.float64,
-                              device=device)
-        Y = torch.as_tensor(np.stack([y[e] for e, _ in chunk]), dtype=torch.float64,
-                            device=device)
-        _, v = R.adaptive(raw, X, Y, priors)
-        for (e, _), value in zip(chunk, v.cpu().numpy()):
+        _, v = R.own_fit(np.stack([starts[e, t] for e, t in chunk]), x,
+                         np.stack([y[e] for e, _ in chunk]), priors, device)
+        for (e, _), value in zip(chunk, v):
             if np.isfinite(value):
                 best[e] = min(best[e], value)
     return np.where(np.isfinite(best), best, np.nan)
@@ -276,34 +303,29 @@ def check(config, records, seeds, polish, device, descent=False, probe=None):
     ``polish`` emulators are polished, none where it is 0;
     ``winner_above_start`` where ``descent``; ``starts_off`` where a
     ``probe`` (``run``'s) is given."""
-    import torch
-
-    from reference import gp_ref as R
-
+    R = cells.reference(config)
     problems = {s: data.problem(config, s) for s in {r["data"] for r in records}}
-    priors = {s: R.default_corr_priors(x) for s, (x, _) in problems.items()}
+    priors = {s: R.priors(x) for s, (x, _) in problems.items()}
     unfit = off = unmoved = 0
     gap = 0.0
     above = []     # winner less best start, each judged emulator
     judged = []    # (record, emulator) pairs the reference judged
-    rungs_of = []
     for i, r in enumerate(records):
-        rungs, ref = _judge(*problems[r["data"]], r, device)
+        allowed, ref = _judge(R, *problems[r["data"]], r, priors[r["data"]], device)
         fitted = np.isfinite(r["theta"]).all(1) & np.isfinite(r["nlp"])
         unfit += int((~fitted).sum())
-        off += int((fitted & (rungs < 0)).sum())
+        off += int((fitted & ~allowed).sum())
         starts = R.restart_points(priors[r["data"]], len(r["nlp"]), config["fit"]["n_tries"],
                                   r["seed"])
         unmoved += int((fitted & _unmoved(r["theta"], starts)).sum())
-        on = fitted & (rungs >= 0)
+        on = fitted & allowed
         if on.any():
             gap = max(gap, float(np.nan_to_num(np.abs(r["nlp"][on] - ref[on]).max(),
                                                nan=np.inf)))
         if descent and on.any():
-            best = _best_start(*problems[r["data"]], starts, on, priors[r["data"]], device)
+            best = _best_start(R, *problems[r["data"]], starts, on, priors[r["data"]], device)
             above += [v for v in ref[on] - best[on] if np.isfinite(v)]
         judged += [(i, e) for e in np.flatnonzero(on)]
-        rungs_of.append(rungs)
     out = {"unfit": unfit, "nugget_off_ladder": off, "nlp_gap": gap, "unmoved": unmoved}
     if descent:
         out["winner_above_start"] = float(np.median(above)) if above else np.nan
@@ -318,10 +340,8 @@ def check(config, records, seeds, polish, device, descent=False, probe=None):
                                     replace=False):
             i, e = judged[j]
             x, y = problems[records[i]["data"]]
-            start, best = R.polish(records[i]["theta"][e],
-                                   torch.as_tensor(x, dtype=torch.float64, device=device),
-                                   torch.as_tensor(y[e], dtype=torch.float64, device=device),
-                                   priors[records[i]["data"]], int(rungs_of[i][e]))
+            start, best = R.polish(records[i]["theta"][e], records[i]["nugget"][e], x, y[e],
+                                   priors[records[i]["data"]], device)
             gain = max(gain, start - best)
         out["polish_gain"] = gain
     return out

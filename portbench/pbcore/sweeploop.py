@@ -8,15 +8,20 @@ wave's own observations (the simulator at a seeded point, variances
 uniform in ``obs_var``), its implausibilities returned to the host.  Wave 0
 is the warm-up.
 
+The hyperparameters and the observations' simulator are the
+configuration's reference's (``seeded_raw``) and data generator's
+(``simulator``), ``cells.py``.
+
 After the window, on a sample of each wave's points drawn from the seed,
-the implausibilities are judged against the plain reference in float64
+the implausibilities are judged against that plain reference in float64
 (the prediction's mean and variance, the implausibility, the rank
 selection):
 
 * ``wrong_count``: waves that returned another number of points than the
   pool holds, or a value that is not finite (limit 0);
-* ``nugget_off_ladder``: emulators whose nugget is no rung of the
-  reference's own ladder (limit 0);
+* ``nugget_off_ladder``: emulators whose nugget is none that the
+  reference's model allows (the default reference's adaptive nugget: no
+  rung of its own ladder) (limit 0);
 * ``I_gap``: the largest gap between the program's implausibility and the
   reference's, relative to the reference's where that is above 1 and
   absolute below (a rank's implausibility near 0 has no relative digits
@@ -27,7 +32,7 @@ import time
 
 import numpy as np
 
-from . import data, window
+from . import cells, data, window
 from .fitloop import build
 from .trace import Tracer
 
@@ -38,14 +43,14 @@ def observations(cell, seeds, k):
     lo, hi = cell.traffic["obs_var"]
     rs = np.random.RandomState(seeds.request(k))
     x_star = rs.uniform(size=(1, d["n_dim"]))
-    mean = data.tsunami_simulator(x_star, d["n_points"], d["n_outputs"], seeds.data)[:, 0]
+    mean = data.simulator(cell.config, x_star, seeds.data)[:, 0]
     return [mean, rs.uniform(lo, hi, size=d["n_outputs"])]
 
 
 def thetas(config, seeds):
     """The emulators' raw hyperparameters, seeded."""
     d = config["data"]
-    return data.tsunami_thetas(d["n_outputs"], d["n_dim"], seeds.data)
+    return cells.reference(config).seeded_raw(d["n_outputs"], d["n_dim"], seeds.data)
 
 
 def run(cell, seeds, seconds, trace, device):
@@ -91,55 +96,32 @@ def run(cell, seeds, seconds, trace, device):
             "attempted": n, "failed": sum(r["failed"] for r in records)}
 
 
-def _inputs(out, device, dtype):
-    import torch
-
-    def t(a):
-        return torch.as_tensor(a, dtype=dtype, device=device)
-
-    return t(out["raw"]), t(out["x"]), t(out["y"])
-
-
-def control_outputs(out, rank, device):
-    """The control in the program's place: the implausibilities of the
-    sampled points as the reference gives them in TF32 (float32 with TF32
-    products), at its own adaptive nugget."""
-    import torch
-
-    from reference import gp_ref as R
-
-    raw, X, Y = _inputs(out, device, torch.float32)
-    rungs, _ = R.adaptive(raw, X, Y, R.default_corr_priors(out["x"]), mm=R.tf32_mm)
-    md = R.mean_diag(raw.double(), X.double()).cpu().numpy()
-    out["nuggets"] = np.array([R.LADDER[k] * m if k >= 0 else np.nan
-                               for k, m in zip(rungs, md)])
+def control_outputs(config, out, rank, device):
+    """The control in the program's place: the emulators' nuggets and the
+    implausibilities of the sampled points as the reference gives them in
+    TF32 (float32 with TF32 products), at its own nugget."""
+    R = cells.reference(config)
+    out["nuggets"], _ = R.own_fit(out["raw"], out["x"], out["y"], R.priors(out["x"]), device,
+                                  tf32=True)
     for r in out["records"]:
-        q = torch.as_tensor(out["pool"][r["idx"]], dtype=torch.float32, device=device)
-        mu, var = R.predict(raw, X, Y, rungs, q, mm=R.tf32_mm)
-        o = [torch.as_tensor(v, dtype=torch.float32, device=device) for v in r["obs"]]
-        r["I"] = R.implausibility(mu, var, o[0], o[1], rank).double().cpu().numpy()
+        r["I"] = R.implausibility(out["raw"], out["nuggets"], out["x"], out["y"],
+                                  out["pool"][r["idx"]], *r["obs"], rank, device, tf32=True)
 
 
-def check(out, rank, device):
+def check(config, out, rank, device):
     """The numbers compared for a run's waves (see the module doc)."""
-    import torch
-
-    from reference import gp_ref as R
-
-    raw, X, Y = _inputs(out, device, torch.float64)
-    md = R.mean_diag(raw, X).cpu().numpy()
-    rungs = [R.rung_of(g, m) for g, m in zip(out["nuggets"], md)]
-    off = sum(r < 0 for r in rungs)
+    R = cells.reference(config)
+    allowed, _ = R.judge(out["raw"], out["nuggets"], out["x"], out["y"], R.priors(out["x"]),
+                         device)
+    off = int((~allowed).sum())
     worst = 0.0
     if not off:
         for r in out["records"]:
             if r["I"] is None:
                 continue
-            q = torch.as_tensor(out["pool"][r["idx"]], dtype=torch.float64, device=device)
-            mu, var = R.predict(raw, X, Y, rungs, q)
-            o = [torch.as_tensor(v, dtype=torch.float64, device=device) for v in r["obs"]]
-            ref = R.implausibility(mu, var, o[0], o[1], rank).cpu().numpy()
+            ref = R.implausibility(out["raw"], out["nuggets"], out["x"], out["y"],
+                                   out["pool"][r["idx"]], *r["obs"], rank, device)
             rel = np.abs(r["I"] - ref) / np.maximum(np.abs(ref), 1.0)
             worst = max(worst, float(np.nan_to_num(rel.max(), nan=np.inf)))
     return {"wrong_count": sum(r["failed"] for r in out["records"]),
-            "nugget_off_ladder": int(off), "I_gap": worst if not off else float("inf")}
+            "nugget_off_ladder": off, "I_gap": worst if not off else float("inf")}

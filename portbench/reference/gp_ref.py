@@ -1,4 +1,7 @@
-"""Plain reference of the emulators the benchmark's cells run.
+"""Plain reference of the emulators the benchmark's cells run, and the
+default reference module of a configuration (the interface that the
+harness calls is described in ``pbcore/cells.py``; its functions are the
+last section here).
 
 A squared-exponential Gaussian process with zero mean, per-input
 correlation lengths ``l_d = exp(-raw_d / 2)``, covariance ``sigma2 =
@@ -220,14 +223,14 @@ def predict(raw, x, y, rungs, q, mm=torch.matmul):
     return mu, torch.clamp_min(var, 0.0)
 
 
-def implausibility(mu, var, obs_mean, obs_var, rank):
+def rank_implausibility(mu, var, obs_mean, obs_var, rank):
     """``|z - mu| / sqrt(var + V_obs)`` per output ``(G, m)``, then the
     ``rank``-th largest over the outputs (0: the largest): ``(m,)``."""
     I = torch.abs(obs_mean[:, None] - mu) / torch.sqrt(var + obs_var[:, None])
     return torch.sort(I, dim=0, descending=True).values[rank]
 
 
-def polish(raw0, x, y, priors, rung, maxiter=30):
+def polish_rung(raw0, x, y, priors, rung, maxiter=30):
     """Minimize the reference's negative log posterior of one emulator from
     ``raw0`` by L-BFGS-B in float64 (the nugget at the same rung of each
     point's own ladder, held constant in the gradient as the program holds
@@ -246,3 +249,82 @@ def polish(raw0, x, y, priors, rung, maxiter=30):
     res = minimize(f, np.asarray(raw0, dtype=np.float64), jac=True, method="L-BFGS-B",
                    options={"maxiter": maxiter})
     return start, min(start, float(res.fun))
+
+
+# ---------------------------------------------------------------------------
+# the interface that the harness calls (``pbcore/cells.py``): numpy in and
+# out, the program's nuggets as it reports them, turned into rungs here
+# ---------------------------------------------------------------------------
+
+def _tensors(device, dtype, *arrays):
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrays]
+
+
+def _rungs(raw, x, nugget):
+    """Each lane's rung for the nugget ``nugget`` at raw (tensors), -1
+    where it is none."""
+    md = mean_diag(raw.double(), x.double()).cpu().numpy()
+    return [rung_of(g, m) for g, m in zip(nugget, md)]
+
+
+def priors(x):
+    """The default priors of the inputs ``x``: :func:`default_corr_priors`."""
+    return default_corr_priors(x)
+
+
+def seeded_raw(n_outputs, n_dim, seed):
+    """Raw hyperparameters ``(n_outputs, n_dim + 1)`` drawn from ``seed``:
+    correlation raws in U(-1, 1), covariance raw in U(-0.5, 0.5) (a copy of
+    ``chip_smoke.py::make_thetas``)."""
+    rng = np.random.RandomState(seed)
+    return np.concatenate(
+        [rng.uniform(-1, 1, size=(n_outputs, n_dim)),
+         rng.uniform(-0.5, 0.5, size=(n_outputs, 1))],
+        axis=1,
+    )
+
+
+def judge(raw, nugget, x, y, priors, device):
+    """The program's emulators ``(B,)`` at their hyperparameters ``raw`` and
+    nuggets: whether each nugget is a rung of this model's own ladder, and
+    the negative log posterior in float64 there (NaN where it is not)."""
+    raw_t, X = _tensors(device, torch.float64, raw, x)
+    rungs = np.asarray(_rungs(raw_t, X, nugget))
+    on = rungs >= 0
+    out = np.full(len(rungs), np.nan)
+    if on.any():
+        (Y,) = _tensors(device, torch.float64, y[on])
+        out[on] = nlp(raw_t[torch.as_tensor(on, device=device)], X, Y, priors,
+                      rungs[on].tolist()).cpu().numpy()
+    return on, out
+
+
+def own_fit(raw, x, y, priors, device, tf32=False):
+    """This model's own nugget at raw ``(B, D + 1)``, the first rung that
+    factors, and the negative log posterior there, in float64 or, where
+    ``tf32``, in float32 with TF32 products (the control); NaN where no rung
+    factors."""
+    dtype, mm = (torch.float32, tf32_mm) if tf32 else (torch.float64, torch.matmul)
+    raw_t, X, Y = _tensors(device, dtype, raw, x, y)
+    rungs, v = adaptive(raw_t, X, Y, priors, mm=mm)
+    md = mean_diag(raw_t.double(), X.double()).cpu().numpy()
+    nug = np.array([LADDER[k] * m if k >= 0 else np.nan for k, m in zip(rungs, md)])
+    return nug, v.double().cpu().numpy()
+
+
+def polish(raw0, nugget, x, y, priors, device):
+    """:func:`polish_rung` of one emulator from the program's ``raw0`` and
+    nugget: ``(nlp at raw0, the least nlp found)``."""
+    raw_t, X, Y = _tensors(device, torch.float64, raw0[None], x, y)
+    (rung,) = _rungs(raw_t, X, [nugget])
+    return polish_rung(raw0, X, Y, priors, rung)
+
+
+def implausibility(raw, nugget, x, y, q, obs_mean, obs_var, rank, device, tf32=False):
+    """The ``rank``-th largest implausibility over the emulators ``(m,)`` at
+    points ``q`` ``(m, D)``, from their prediction at raw and nuggets, in
+    float64 or, where ``tf32``, in float32 with TF32 products."""
+    dtype, mm = (torch.float32, tf32_mm) if tf32 else (torch.float64, torch.matmul)
+    raw_t, X, Y, Q, om, ov = _tensors(device, dtype, raw, x, y, q, obs_mean, obs_var)
+    mu, var = predict(raw_t, X, Y, _rungs(raw_t, X, nugget), Q, mm=mm)
+    return rank_implausibility(mu, var, om, ov, rank).double().cpu().numpy()

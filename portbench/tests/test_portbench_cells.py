@@ -7,6 +7,7 @@ import re
 import pytest
 
 from pbcore import cells
+from tiny import plug_tree
 
 MANIFEST = json.loads((cells.ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -45,7 +46,7 @@ def test_overrides_replace_entries_of_the_files():
     assert cells.load("tsunami64.fit").config["fit"]["n_tries"] == 15
 
 
-def test_a_cell_added_by_data_alone():
+def test_a_cell_added_by_data_alone(tmp_path, monkeypatch):
     manifest = dict(MANIFEST)
     manifest["workloads"] = MANIFEST["workloads"] + [
         {"name": "tsunami64.other", "config": "tsunami64", "traffic": "fit", "chips": 1,
@@ -54,6 +55,19 @@ def test_a_cell_added_by_data_alone():
         cells.load("tsunami64.other", manifest=manifest)
     with pytest.raises(KeyError):
         cells.load("no.such.cell")
+    # a configuration of its own: its file, generator, reference, traffic
+    # and limits, each a new file of a benchmark tree that holds no other
+    plug_tree(tmp_path)
+    monkeypatch.setattr(cells, "ROOT", tmp_path)
+    monkeypatch.setattr(cells, "BENCH", tmp_path / "portbench")
+    for workload, loop in (("plug.fit", "fit"), ("plug.sweep", "sweep")):
+        cell = cells.load(workload)
+        assert cell.traffic["loop"] == loop and cell.config["name"] == "plug"
+        assert cells.generator(cell.config).__name__ == "portbench_generators_plug_gen"
+        assert cells.reference(cell.config).__name__ == "portbench_reference_plug_ref"
+    with pytest.raises(FileNotFoundError):   # a generator is a file of its own
+        cells.generator(cells.load("plug.fit", {"config": {"data": {"generator": "tsunami"}}})
+                        .config)
 
 
 def test_manifest_form():

@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 from pbcore import cells, guard
 
 SOURCES = sorted(p for p in cells.BENCH.rglob("*.py") if "tests" not in p.parts)
@@ -36,8 +38,12 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert found == []
 
 
-def test_reference_imports_nothing_of_the_program():
-    for p in (cells.BENCH / "reference").rglob("*.py"):
+@pytest.mark.parametrize("kind", ["reference", "generators"])
+def test_reference_imports_nothing_of_the_program(kind):
+    # nor does a data generator: the benchmark makes the inputs itself
+    paths = list((cells.BENCH / kind).rglob("*.py"))
+    assert paths
+    for p in paths:
         assert not [m for m in _imports(p) if m.split(".")[0] in ("mogp_tpu_torch", "pbcore")]
 
 
@@ -45,8 +51,10 @@ def test_a_run_loads_no_jax():
     # every module of the harness, and the program, in a fresh interpreter
     code = ("import sys; sys.path[:0] = [{root!r}, {bench!r}]\n"
             "import mogp_tpu_torch\n"
-            "from pbcore import cli, faults, worker\n"
+            "from pbcore import cells, cli, faults, worker\n"
             "from reference import gp_ref\n"
+            "for w in ('tsunami64.fit', 'large_n4096.fit'):\n"
+            "    c = cells.load(w).config; cells.generator(c); cells.reference(c)\n"
             "from pbcore import guard\n"
             "print(guard.forbidden_modules())\n").format(root=str(cells.ROOT),
                                                            bench=str(cells.BENCH))

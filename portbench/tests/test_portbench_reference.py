@@ -1,6 +1,7 @@
 """The plain reference agrees with the program in float64 on the CPU, so
 that what it judges on the card is the program's precision and not a
-difference of definitions."""
+difference of definitions; through the interface that the harness calls
+(``pbcore/cells.py``) as through its own routines."""
 
 import numpy as np
 import pytest
@@ -11,9 +12,13 @@ from pbcore import data
 from reference import gp_ref as R
 
 
+CPU = torch.device("cpu")
+TSUNAMI = {"data": {"generator": "tsunami", "n_points": 40, "n_dim": 5, "n_outputs": 3}}
+
+
 @pytest.fixture(scope="module")
 def fitted():
-    x, y = data.tsunami_data(40, 5, 3, 11)
+    x, y = data.problem(TSUNAMI, 11)
     mgp = mt.MultiOutputGP(x, y, nugget="adaptive", device="cpu")
     np.random.seed(5)
     mt.fit_GP_MAP(mgp, n_tries=4, maxiter=30, refit=True)
@@ -30,7 +35,14 @@ def test_priors_and_log_posterior(fitted):
     rungs = [R.rung_of(em.nugget, m) for em, m in zip(mgp.emulators, md)]
     assert min(rungs) >= 0
     ref = R.nlp(raw, torch.tensor(x), torch.tensor(y), priors, rungs).numpy()
-    assert np.allclose(ref, [em.current_logpost for em in mgp.emulators], rtol=1e-10)
+    logpost = [em.current_logpost for em in mgp.emulators]
+    assert np.allclose(ref, logpost, rtol=1e-10)
+    nuggets = np.array([em.nugget for em in mgp.emulators])
+    allowed, judged = R.judge(raw.numpy(), nuggets, x, y, R.priors(x), CPU)
+    assert allowed.all() and np.array_equal(judged, ref)
+    own, at_own = R.own_fit(raw.numpy(), x, y, R.priors(x), CPU)
+    assert np.allclose(own, nuggets, rtol=1e-12) and np.array_equal(at_own, ref)
+    assert not R.judge(raw.numpy(), 3.0 * nuggets + 1e-3, x, y, priors, CPU)[0].any()
 
 
 def test_implausibility(fitted):
@@ -42,8 +54,10 @@ def test_implausibility(fitted):
     md = R.mean_diag(raw, torch.tensor(x)).numpy()
     rungs = [R.rung_of(em.nugget, m) for em, m in zip(mgp.emulators, md)]
     mu, var = R.predict(raw, torch.tensor(x), torch.tensor(y), rungs, torch.tensor(q))
-    ref = R.implausibility(mu, var, torch.tensor(obs[0]), torch.tensor(obs[1]), 1).numpy()
+    ref = R.rank_implausibility(mu, var, torch.tensor(obs[0]), torch.tensor(obs[1]), 1).numpy()
     assert np.allclose(I, ref, rtol=1e-9)
+    nuggets = np.array([em.nugget for em in mgp.emulators])
+    assert np.array_equal(R.implausibility(raw.numpy(), nuggets, x, y, q, *obs, 1, CPU), ref)
 
 
 def test_restart_points_are_the_programs(fitted):
