@@ -56,7 +56,7 @@ class GPData(NamedTuple):
 
     Mean-prior information is unrolled into arrays (zeros for weak priors):
     ``mean_mean`` = prior mean ``b``, ``mean_inv_cov`` = ``B^-1``,
-    ``mean_inv_cov_b`` = ``B^-1 b``, ``mean_logdet_cov`` = ``log det B``,
+    ``mean_logdet_cov`` = ``log det B``,
     ``n_coeff`` = the coefficient count in the 2-pi normalization.
     """
 
@@ -69,7 +69,6 @@ class GPData(NamedTuple):
     fixed_nugget: torch.Tensor    # (L,); only used for nugget_type="fixed"
     mean_mean: torch.Tensor       # (L, M)
     mean_inv_cov: torch.Tensor    # (L, M, M)
-    mean_inv_cov_b: torch.Tensor  # (L, M)
     mean_logdet_cov: torch.Tensor  # (L,)
     n_coeff: torch.Tensor         # (L,)
 
@@ -122,13 +121,11 @@ def make_gp_data(inputs, targets, dm, priors, nugget_value=0.0, dtype=None,
     if mp.has_weak_priors:
         mean_mean = np.zeros(M)
         mean_inv_cov = np.zeros((M, M))
-        mean_inv_cov_b = np.zeros(M)
         mean_logdet = 0.0
         n_coeff = n - M
     else:
         mean_mean = mp.mean
         mean_inv_cov = np.reshape(mp.inv_cov(), (M, M))
-        mean_inv_cov_b = np.reshape(mp.inv_cov_b(), (M,))
         mean_logdet = mp.logdet_cov()
         n_coeff = n
 
@@ -142,7 +139,6 @@ def make_gp_data(inputs, targets, dm, priors, nugget_value=0.0, dtype=None,
         fixed_nugget=t(0.0 if nugget_value is None else nugget_value),
         mean_mean=t(mean_mean),
         mean_inv_cov=t(mean_inv_cov),
-        mean_inv_cov_b=t(mean_inv_cov_b),
         mean_logdet_cov=t(mean_logdet),
         n_coeff=t(n_coeff),
     )
@@ -223,8 +219,10 @@ def gp_fit(raw, data: GPData, kernel, nugget_type, reuse_factor=True,
     )
     Ainv = core.Ainv
 
-    # analytic mean: beta_hat = A^-1 (H^T K^-1 y + B^-1 b)
-    mean = Ainv.solve(core.H_Kinv_t + data.mean_inv_cov_b)
+    # analytic mean: beta_hat = A^-1 (H^T K^-1 y + B^-1 b), which is
+    # b + A^-1 H^T K^-1 (y - H b) since A b = H^T K^-1 H b + B^-1 b
+    # (core.H_Kinv_t is taken at the residual y - H b)
+    mean = data.mean_mean + Ainv.solve(core.H_Kinv_t)
 
     # the upper sweep completes the prediction artifacts;
     # Kinv_t_mean = K^-1 (y - H mean) = Kinv_t + (K^-1 H)(b - mean)
