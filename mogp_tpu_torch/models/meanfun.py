@@ -2,7 +2,11 @@
 
 Port of ``mogp_tpu/models/meanfun.py``: :func:`design_matrix` on the host
 (numpy), and :func:`design_matrix_fn`, the same columns from a query
-tensor on its device, for the SMC sampler whose particles live there.
+tensor on its device.  The prediction of a ``MultiOutputGP`` (its
+``predict``, the history-matching sweep, SMC's implausibility, the sharded
+prediction) builds a formula mean's columns with the latter, one query tile
+at a time, from the caller's coordinates of the tile in float64, and then
+casts them to the emulators' dtype (``models/mogp.py::_queries``).
 
 The reference builds its mean design matrix with patsy
 (``GaussianProcess.py:485-515``) and keeps a separate symbolic
@@ -231,6 +235,10 @@ def _assemble(mean, x, state, xp):
     def as_col(value, dtype):
         if host:
             return np.broadcast_to(np.asarray(value, dtype=np.float64), (n,))
+        if isinstance(value, (int, float)):
+            # filled on the device: copying a Python number there waits for
+            # the stream, so for every query tile already enqueued
+            return x.new_full((n,), value, dtype=dtype)
         return torch.broadcast_to(torch.as_tensor(value, dtype=dtype, device=x.device), (n,))
 
     def categorical(factor, reduced):
@@ -380,7 +388,12 @@ def n_mean_params(mean, D, state=None):
 def design_matrix_fn(mean, state=None):
     """``x (m, D) tensor -> (m, M) tensor`` on ``x``'s device and in its
     type: the columns of :func:`design_matrix` (``mogp_tpu``'s
-    ``design_matrix_fn``, ``meanfun.py:348-...``).
+    ``design_matrix_fn``, ``meanfun.py:348-...``).  It serves SMC's
+    particles and every ``MultiOutputGP`` prediction with a formula mean,
+    which calls it once a query tile on the caller's coordinates of the
+    tile in float64, so that each column is computed from the values the
+    host sees and rounded once to the emulators' dtype, as the host's
+    float64 columns are.
 
     The columns come from the assembly of the host path, evaluated with
     torch on the tensor.  A ``C(...)`` factor needs its levels bound: the

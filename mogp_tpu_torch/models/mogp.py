@@ -21,6 +21,7 @@ import torch
 
 from ..ops.kernels import KernelBase
 from ..parallel.mesh import to_device
+from ..utils import metrics
 from .gp import (
     GaussianProcess,
     PredictResult,
@@ -63,15 +64,51 @@ def _cat_tiles(tiles):
     return mu, None if parts[0][1] is None else torch.cat([p[1] for p in parts], dim=-1)
 
 
-def _group_tiles(arts, data, testing, dmtest, kernel, nugget_type, tile, **kw):
+def _group_tiles(arts, data, testing, design, kernel, nugget_type, tile, **kw):
     """``gp_predict`` of one group over consecutive query tiles of
-    ``tile`` points (all at once for 0), each when it is asked for."""
+    ``tile`` points (all at once for 0), each when it is asked for.
+    ``design(rows, x)`` gives the design matrix of the queries
+    ``x = testing[rows]``, built for each tile as its turn comes."""
     if not tile:
-        yield gp_predict(arts, data, testing, dmtest, kernel, nugget_type, **kw)
+        yield gp_predict(arts, data, testing, design(slice(None), testing), kernel, nugget_type,
+                         **kw)
         return
     for c0 in range(0, testing.shape[0], tile):
-        yield gp_predict(arts, data, testing[c0:c0 + tile], dmtest[c0:c0 + tile], kernel,
-                         nugget_type, **kw)
+        rows = slice(c0, c0 + tile)
+        x = testing[rows]
+        yield gp_predict(arts, data, x, design(rows, x), kernel, nugget_type, **kw)
+
+
+def _queries(em, testing, dev):
+    """The queries ``testing`` on ``dev`` in ``em``'s dtype, and
+    ``design(rows, x_tile)`` for :func:`_group_tiles`: the design matrix of
+    ``em``'s mean at the queries ``testing[rows]``, counted by the rows it
+    serves.
+
+    A formula mean is evaluated on the device, one tile at a time, from
+    the caller's coordinates of the tile widened to float64, then cast:
+    every column, a jump or a level match included, sees the values the
+    host's float64 columns see and is rounded once.  So the queries cross
+    in the caller's type and are narrowed on the device, and no design
+    matrix of the whole query set exists.  Without columns it costs
+    nothing.  A callable mean must see the caller's inputs: its columns
+    are built on the host, once, and sliced.
+    """
+    mean, dtype, m = em._mean, em._dtype, testing.shape[0]
+    if em.n_mean and isinstance(mean, str):
+        metrics.count("predict.dm_rows_device", m)
+        fn = design_matrix_fn(mean, em._mean_state)
+        given = torch.as_tensor(testing, device=dev)
+        return given.to(dtype), lambda rows, xt: fn(given[rows].double()).to(dtype)
+    x = torch.as_tensor(testing, dtype=dtype, device=dev)
+    if not em.n_mean:
+        return x, lambda rows, xt: xt.new_zeros((xt.shape[0], 0))
+    metrics.count("predict.dm_rows_host", m)
+    if isinstance(testing, torch.Tensor):
+        dm = design_matrix_fn(mean, em._mean_state)(x)
+    else:
+        dm = torch.as_tensor(em.get_design_matrix(testing), dtype=dtype, device=dev)
+    return x, lambda rows, xt: dm[rows]
 
 
 class MultiOutputGPBase:
@@ -303,13 +340,17 @@ class MultiOutputGP(MultiOutputGPBase):
     def _predict_groups(self, testing, indices, unc=True, include_nugget=True, full_cov=False,
                         max_batch_size=None, device=None):
         """The one assembly of a prediction of the fitted emulators
-        ``indices`` at ``testing`` (2D float64 numpy, or a tensor, whose
-        design matrix is then built on the device by ``design_matrix_fn``),
-        for :meth:`predict`, ``HistoryMatching``'s device sweep, SMC's
+        ``indices`` at ``testing`` (2D float64 numpy, or a tensor), for
+        :meth:`predict`, ``HistoryMatching``'s device sweep, SMC's
         implausibility and the sharded prediction (``parallel/``), on
         ``device`` (default the emulators'; the training data and the
-        artifacts are copied there).  Per signature group it
-        yields ``(rows, tiles, scale, shift)``:
+        artifacts are copied there).  The design matrix of a formula mean is
+        built there, a query tile at a time, from the caller's coordinates
+        in float64 (``_queries``); that of a callable mean is built on the
+        host, whole, and copied; a zero mean has none.  The counters
+        ``predict.dm_rows_device`` and ``predict.dm_rows_host`` count the
+        query rows of each, for groups with mean terms.  Per signature
+        group it yields ``(rows, tiles, scale, shift)``:
 
         * ``rows``: the group's emulator indices;
         * ``tiles``: ``(mu, var)`` on the group's device over consecutive
@@ -330,17 +371,11 @@ class MultiOutputGP(MultiOutputGPBase):
             data = to_device(cat_lanes([em._data for em in ems]), dev)
             tile = 0 if full_cov else _query_tile(testing.shape[0], max_batch_size, data,
                                                   em0.kernel, em0.nugget_type)
-            if isinstance(testing, torch.Tensor):
-                x = testing.to(dev, em0._dtype)
-                dm = design_matrix_fn(em0._mean, em0._mean_state)(x)
-            else:
-                x = torch.as_tensor(testing, dtype=em0._dtype, device=dev)
-                dm = torch.as_tensor(em0.get_design_matrix(testing), dtype=em0._dtype,
-                                     device=dev)
+            x, design = _queries(em0, testing, dev)
             tiles = _group_tiles(
-                to_device(cat_lanes([em._artifacts for em in ems]), dev), data, x, dm, em0.kernel,
-                em0.nugget_type, tile, unc=bool(unc), include_nugget=bool(include_nugget),
-                full_cov=bool(full_cov),
+                to_device(cat_lanes([em._artifacts for em in ems]), dev), data, x, design,
+                em0.kernel, em0.nugget_type, tile, unc=bool(unc),
+                include_nugget=bool(include_nugget), full_cov=bool(full_cov),
             )
             yield (rows, tiles, np.array([em._t_std for em in ems]),
                    np.array([em._t_mean for em in ems]))
