@@ -7,55 +7,6 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-// Phase stamps, for mogp_tpu_torch/tools/chol_phases.py only: it builds
-// these sources with -DMOGP_PHASE_STAMPS, and thread 0 of block 0 then adds
-// the clock64() cycles since its previous stamp to mogp_phase_cycles[i] at
-// MOGP_PHASE(i).  The slots: K2 0 load, 1 tile, 2 rows, 3 trailing update,
-// 4 store; the blocked diag step 0 load, 1 tiles, 2 rows, 3 trailing
-// update, 4 store; variant 1's panel step 5 load, 6 rank-1 steps (less 12
-// and 13: warp 0's work before each barrier and its waits at it, summed in
-// registers by MOGP_LAP and added once by MOGP_LAP_FLUSH), 7 store;
-// the rows step 8 load, 9 products, 10 substitutions, 11 store; the update
-// 16 waiting for stages, 17 products, 18 epilogue; variant 3's panel step
-// (block 0's warp 0, which runs the chain of tiles) 19 load, 25 the next
-// tile's rank-16 update, 24 its rank-1 factorization, 20 its Newton
-// inverse, 21 its rows' product M X^T, 22 the wait at the micro-panel's
-// barrier for the other warps' products and updates, 23 store.  In the
-// library's own build the macros are empty.
-#ifdef MOGP_PHASE_STAMPS
-__device__ long long mogp_phase_cycles[64];
-#define MOGP_PHASE_BEGIN() long long mogp_phase_last_ = clock64()
-#define MOGP_PHASE(i)                                                 \
-  do {                                                                \
-    if (threadIdx.x == 0 && blockIdx.x == 0) {                        \
-      const long long mogp_phase_now_ = clock64();                    \
-      mogp_phase_cycles[i] += mogp_phase_now_ - mogp_phase_last_;     \
-      mogp_phase_last_ = mogp_phase_now_;                             \
-    }                                                                 \
-  } while (0)
-#define MOGP_LAP_BEGIN() long long mogp_lap_[2] = {0, 0}, mogp_lap_last_ = clock64()
-#define MOGP_LAP(i)                                                   \
-  do {                                                                \
-    const long long mogp_lap_now_ = clock64();                        \
-    mogp_lap_[i] += mogp_lap_now_ - mogp_lap_last_;                   \
-    mogp_lap_last_ = mogp_lap_now_;                                   \
-  } while (0)
-#define MOGP_LAP_FLUSH(s0, s1)                                        \
-  do {                                                                \
-    if (threadIdx.x == 0 && blockIdx.x == 0) {                        \
-      mogp_phase_cycles[s0] += mogp_lap_[0];                          \
-      mogp_phase_cycles[s1] += mogp_lap_[1];                          \
-      mogp_phase_last_ = clock64();                                   \
-    }                                                                 \
-  } while (0)
-#else
-#define MOGP_PHASE_BEGIN()
-#define MOGP_PHASE(i)
-#define MOGP_LAP_BEGIN()
-#define MOGP_LAP(i)
-#define MOGP_LAP_FLUSH(s0, s1)
-#endif
-
 namespace mogp {
 
 // a pivot the factorization may take the root of: false for <= 0, NaN, inf

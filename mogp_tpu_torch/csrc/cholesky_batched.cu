@@ -103,7 +103,6 @@ cholesky_batched_kernel(const T* __restrict__ a, T* __restrict__ out, int n) {
   __shared__ T dinv[kNB];                // 1 / L[j0 + q][j0 + q] of the panel
   __shared__ __align__(16) T col[32];    // the tile's column in the making
 
-  MOGP_PHASE_BEGIN();
   const size_t nn = static_cast<size_t>(n) * n;
   const T* a_mat = a + blockIdx.x * nn;
   T* out_mat = out + blockIdx.x * nn;
@@ -122,7 +121,6 @@ cholesky_batched_kernel(const T* __restrict__ a, T* __restrict__ out, int n) {
   if (t == 0) bad = 0;
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
-  MOGP_PHASE(0);
 
   for (int j0 = 0; j0 < n; j0 += kNB) {
     const int nb = min(kNB, n - j0);
@@ -179,7 +177,6 @@ cholesky_batched_kernel(const T* __restrict__ a, T* __restrict__ out, int n) {
       }
     }
     __syncthreads();
-    MOGP_PHASE(1);
     if (bad) break;           // read by every thread after the barrier: a uniform exit
     const int c0 = j0 + kNB;  // the trailing triangle starts here (nb == kNB below)
     if (c0 >= n) break;
@@ -199,7 +196,6 @@ cholesky_batched_kernel(const T* __restrict__ a, T* __restrict__ out, int n) {
       for (int q = 0; q < kNB; ++q) p[cs(q) + i] = x[q];
     }
     __syncthreads();
-    MOGP_PHASE(2);
 
     // 3. P(i, k) -= sum_q L[i][j0 + q] L[k][j0 + q] for c0 <= k <= i < n, in
     // items of 64 rows (lane: rows r0 + lane and r0 + 32 + lane) by 16
@@ -238,7 +234,6 @@ cholesky_batched_kernel(const T* __restrict__ a, T* __restrict__ out, int n) {
       }
     }
     __syncthreads();
-    MOGP_PHASE(3);
   }
 
   // the factor out, a warp per row: upper triangle zero, all NaN on a bad pivot
@@ -253,7 +248,6 @@ cholesky_batched_kernel(const T* __restrict__ a, T* __restrict__ out, int n) {
       out_mat[i * n + k] = v;
     }
   }
-  MOGP_PHASE(4);
 }
 
 template <typename T>

@@ -523,7 +523,6 @@ blk_diag32_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
   T* dinv = S + kNB * kLDS;               // kNB reciprocals of the diagonal
   __shared__ int bad;
   __shared__ __align__(16) T col[32];     // factor_tile's column scratch
-  MOGP_PHASE_BEGIN();
   const int lane = blockIdx.x;
   if (status[lane]) return;
   const int w = min(kNB, n - base);
@@ -535,14 +534,12 @@ blk_diag32_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
   if (t == 0) bad = 0;
   cp_async_wait<0>();
   __syncthreads();
-  MOGP_PHASE(0);
 
   for (int j0 = 0; j0 < w; j0 += kMP) {
     const int mb = min(kMP, w - j0);
     T* D = S + j0 * kLDS + j0;
     if (warp == 0) factor_tile<T, kMP, kLDS>(D, dinv + j0, col, mb, &bad);
     __syncthreads();
-    MOGP_PHASE(1);
     if (bad) {  // read by every thread after the barrier: a uniform exit
       if (t == 0) status[lane] = base + j0 + bad;
       return;
@@ -553,7 +550,6 @@ blk_diag32_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
       subst_row32<T>(S + (j0 + kMP + r) * kLDS + j0, D, dinv + j0);
     }
     __syncthreads();
-    MOGP_PHASE(2);
     // C -= P P^T: C the trailing below x below block, P the rows just solved
     const T* P = S + (j0 + kMP) * kLDS + j0;
     T* C = S + (j0 + kMP) * kLDS + j0 + kMP;
@@ -569,14 +565,12 @@ blk_diag32_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
                            (ti - tj) * 16);
     }
     __syncthreads();
-    MOGP_PHASE(3);
   }
 
   for (int e = t; e < kNB * kNB; e += kThreads) {
     const int r = e / kNB, c = e % kNB;
     if (c <= r && r < w) A[static_cast<size_t>(r) * n + c] = S[r * kLDS + c];
   }
-  MOGP_PHASE(4);
 }
 
 // ---------------------------------------------------------------------------
@@ -597,7 +591,6 @@ blk_rows32_kernel(T* __restrict__ out, const int* __restrict__ status, int n, in
   T* Ls = reinterpret_cast<T*>(smem_raw);  // kNB x kLDS, L11
   T* Xs = Ls + kNB * kLDS;                 // kRowTile2 x kLDS, this block's rows
   T* dinv = Xs + kRowTile2 * kLDS;         // kNB reciprocals of L11's diagonal
-  MOGP_PHASE_BEGIN();
   const int lane = blockIdx.x / tiles;
   if (status[lane]) return;
   const int r0 = base + kNB + (blockIdx.x % tiles) * kRowTile2;
@@ -613,7 +606,6 @@ blk_rows32_kernel(T* __restrict__ out, const int* __restrict__ status, int n, in
   if (t < kNB) dinv[t] = T(1) / L11[static_cast<size_t>(t) * n + t];
   cp_async_wait<0>();
   __syncthreads();
-  MOGP_PHASE(8);
 
   const int tm = warp / 2, tn = warp % 2;  // this warp's 16 x 16 tile of the 64 x 32 block
   for (int j0 = 0; j0 < kNB; j0 += kMP) {
@@ -624,20 +616,17 @@ blk_rows32_kernel(T* __restrict__ out, const int* __restrict__ status, int n, in
                             j0);
       sub_acc<T, kMI, kNI>(Xs + tm * 16 * kLDS + j0 + tn * 16, kLDS, acc, 16, 16);
       __syncthreads();
-      MOGP_PHASE(9);
     }
     for (int r = t; r < rows; r += kPanelThreads) {
       subst_row32<T>(Xs + r * kLDS + j0, Ls + j0 * kLDS + j0, dinv + j0);
     }
     __syncthreads();
-    MOGP_PHASE(10);
   }
 
   for (int e = t; e < rows * kNB; e += kPanelThreads) {
     const int r = e / kNB, c = e % kNB;
     M[static_cast<size_t>(r0 + r) * n + base + c] = Xs[r * kLDS + c];
   }
-  MOGP_PHASE(11);
 }
 
 // ---------------------------------------------------------------------------
@@ -711,7 +700,6 @@ blk_panel1_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
   T* S = reinterpret_cast<T*>(smem_raw);        // kRows x kLD: the panel in and out
   __shared__ __align__(16) T col[2][P::kRows];  // L[:, k], by parity of k
   __shared__ int last, bad;
-  MOGP_PHASE_BEGIN();
   const int lane = blockIdx.x / tiles, tile = blockIdx.x % tiles;
   if (status[lane]) return;
   const int w = min(kNB, n - base);
@@ -754,8 +742,6 @@ blk_panel1_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
   }
   if (wc == 0) publish_col(a, 0, 0, 0, col[0], &bad);
   __syncthreads();
-  MOGP_PHASE(5);
-  MOGP_LAP_BEGIN();
 
   // step k = 32 q + 4 ow + e: column k is slot 4 q + e of warp ow, so every
   // slot index is a constant.  A warp's groups below q are done; group q is
@@ -795,15 +781,11 @@ blk_panel1_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
             publish_col(a, 4 * q2, q2, k + 1, nxt, &bad);
           }
         }
-        MOGP_LAP(0);
         __syncthreads();
-        MOGP_LAP(1);
       }
     }
   }
 swept:
-  MOGP_LAP_FLUSH(12, 13);
-  MOGP_PHASE(6);
   if (bad) {  // read by every thread after the last barrier: a uniform exit
     if (last && t == 0) status[lane] = base + bad;
     return;
@@ -823,7 +805,6 @@ swept:
     const bool ok = i < kNB ? last && i < w && c <= i : i - kNB < rows;
     if (ok) M[static_cast<size_t>(i < kNB ? base + i : r0 + i - kNB) * n + base + c] = S[i * kLD + c];
   }
-  MOGP_PHASE(7);
 }
 
 // ---------------------------------------------------------------------------
@@ -944,7 +925,6 @@ blk_panel3_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
   __shared__ __align__(16) T col[32];              // factor_tile's column scratch
   __shared__ T dinv[P::kMB];
   __shared__ int last, bad;
-  MOGP_PHASE_BEGIN();
   const int lane = blockIdx.x / tiles, tile = blockIdx.x % tiles;
   if (status[lane]) return;
   const int w = min(kNB, n - base);
@@ -973,13 +953,10 @@ blk_panel3_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
       *counter = 0;
     }
   }
-  MOGP_PHASE(19);
   if (warp == 0 && factor_tile<T, P::kMB, kLDS>(S, dinv, col, min(P::kMB, w), &bad)) {
-    MOGP_PHASE(24);
     newton_inverse<T>(S, dinv, E, Xb[0], min(P::kMB, w));
   }
   __syncthreads();
-  MOGP_PHASE(20);
 
   const int rtiles = (rows + 15) / 16;  // 16-row tiles of this block's rows
   for (int j0 = 0;; j0 += P::kMB) {
@@ -1002,7 +979,6 @@ blk_panel3_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
         __syncwarp();
       }
       asm volatile("bar.arrive 1, %0;" ::"n"(P::kThreads) : "memory");
-      MOGP_PHASE(21);
       if (c0 < w) {  // (c) for the next tile, then its factorization and inverse
         T* D = S + c0 * kLDS + c0;
         T acc[kMI][kNI][Mt::kC];
@@ -1010,13 +986,10 @@ blk_panel3_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
         warp_mma<T, kMI, kNI>(acc, V + c0 * kLDS, kLDS, V + c0 * kLDS, kLDS, P::kMB);
         sub_acc<T, kMI, kNI>(D, kLDS, acc, 16, 0);
         __syncwarp();
-        MOGP_PHASE(25);
         const int mb = min(P::kMB, w - c0);
         if (factor_tile<T, P::kMB, kLDS>(D, dinv, col, mb, &bad)) {
-          MOGP_PHASE(24);
           newton_inverse<T>(D, dinv, E, Xb[(j0 / P::kMB + 1) & 1], mb);
         }
-        MOGP_PHASE(20);
       }
     } else {
       // (b): row tiles q < nd of the diagonal block (the first is warp 0's),
@@ -1053,7 +1026,6 @@ blk_panel3_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
       }
     }
     __syncthreads();
-    MOGP_PHASE(22);
     if (c0 >= w) break;
   }
 
@@ -1074,7 +1046,6 @@ blk_panel3_kernel(T* __restrict__ out, int* __restrict__ status, int n, int base
       }
     }
   }
-  MOGP_PHASE(23);
 }
 
 // ---------------------------------------------------------------------------
@@ -1143,7 +1114,6 @@ blk_update_kernel(T* __restrict__ out, const int* __restrict__ status, int n, in
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* As = reinterpret_cast<T*>(smem_raw);  // [2][BM][kLd]
   T* Bs = As + 2 * C::kStageA;             // [2][kBM][kLd]
-  MOGP_PHASE_BEGIN();
   const int lane = blockIdx.x / tiles;
   if (status[lane]) return;
   const int p = blockIdx.x % tiles;
@@ -1186,7 +1156,6 @@ blk_update_kernel(T* __restrict__ out, const int* __restrict__ status, int n, in
       cp_async_wait<0>();
     }
     __syncthreads();
-    MOGP_PHASE(16);
     const T* a = As + (s & 1) * C::kStageA;
     const T* b = same ? a : Bs + (s & 1) * C::kStageB;
     if (!idle) {
@@ -1194,7 +1163,6 @@ blk_update_kernel(T* __restrict__ out, const int* __restrict__ status, int n, in
                                   C::kLd, C::kKC);
     }
     __syncthreads();
-    MOGP_PHASE(17);
   }
   if (idle) return;
   // A22 -= acc: every load first, then every store (interleaved, each load
@@ -1223,7 +1191,6 @@ blk_update_kernel(T* __restrict__ out, const int* __restrict__ status, int n, in
       }
     }
   }
-  MOGP_PHASE(18);
 }
 
 // ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 Port of ``mogp_tpu/models/fitting.py``.  Every (output, restart) pair is a
 lane of one batched minimization of ``gp_nlp``; the outputs of a
 ``MultiOutputGP`` that share a configuration signature go through it
-together.  The schedule is the JAX package's:
+together, and a single GP is a group of one.  One schedule serves both
+(``_fit_group``), the JAX package's:
 
 * starts: ``theta0`` first when given, then prior samples from the host
   numpy RNG (``GPPriors.sample_n``), so a seeded fit starts where
@@ -13,7 +14,8 @@ together.  The schedule is the JAX package's:
 * the optimizer's trajectory factors with the one-rung ("single") jitter
   ladder under ``nugget="adaptive"``; an output whose every restart came
   out non-finite is run again with the full ladder before it is declared
-  unfit;
+  unfit (a single GP reruns its race, a ``MultiOutputGP`` output runs
+  ``maxiter`` iterations without it, as in ``mogp_tpu``);
 * the winner of each output is refit with the full ladder by the batched
   ``gp_fit`` (``MultiOutputGP._fit_lanes``).
 
@@ -149,7 +151,16 @@ def _gather_starts(gp, n_tries, theta0):
     return np.concatenate(head + [sampled], axis=0) if head else sampled
 
 
-def _extract_opt_options(kwargs):
+def _options(n_tries, method, kwargs):
+    """The checked arguments of a fit: ``(n_tries, maxiter, gtol, ftol,
+    ladder, plan)``, ``plan`` the race's stages or the one full stage."""
+    n_tries = int(n_tries)
+    assert n_tries > 0, "n_tries must be a positive integer"
+    if method not in ("L-BFGS-B", "L-BFGS", "lbfgs"):
+        warnings.warn(
+            "method '{}' is not available on device; using batched L-BFGS".format(method)
+        )
+    kwargs = dict(kwargs)
     maxiter = int(kwargs.pop("maxiter", 200))
     gtol = kwargs.pop("gtol", None)
     ftol = kwargs.pop("ftol", None)
@@ -162,7 +173,8 @@ def _extract_opt_options(kwargs):
         warnings.warn(
             "ignoring unsupported optimizer options: {}".format(sorted(kwargs))
         )
-    return maxiter, gtol, ftol, race, ladder
+    plan = _race_plan(n_tries, maxiter, race) or [(maxiter, None)]
+    return n_tries, maxiter, gtol, ftol, ladder, plan
 
 
 def _race_plan(n_tries, maxiter, race):
@@ -182,67 +194,6 @@ def _race_plan(n_tries, maxiter, race):
     phase_a = max(12, (9 * maxiter) // 20)
     keep = max(2, -(-n_tries // 4))
     return [(phase_a, keep), (max(maxiter - phase_a, 12), None)]
-
-
-def _check_method(method):
-    if method not in ("L-BFGS-B", "L-BFGS", "lbfgs"):
-        warnings.warn(
-            "method '{}' is not available on device; using batched L-BFGS".format(method)
-        )
-
-
-def _best(fun_row):
-    """Index of the smallest finite value, or ``None``."""
-    finite = np.isfinite(fun_row)
-    if not finite.any():
-        return None
-    return int(np.nanargmin(np.where(finite, fun_row, np.inf)))
-
-
-def _fit_single_GP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", **kwargs):
-    """Fit a single GP: all restarts as lanes of one minimization."""
-    assert isinstance(gp, GaussianProcessBase)
-    n_tries = int(n_tries)
-    assert n_tries > 0, "number of attempts must be positive"
-    _check_method(method)
-    maxiter, gtol, ftol, race, ladder = _extract_opt_options(dict(kwargs))
-
-    del last_phase_times[:]
-    with metrics.timed_span("fitting.starts") as drawn:
-        starts = _gather_starts(gp, n_tries, theta0)
-    plan = _race_plan(n_tries, maxiter, race) or [(maxiter, None)]
-
-    def run_stage(cur, iters, keep, ladder_mode):
-        lane0 = torch.zeros(cur.shape[0], dtype=torch.int64, device=cur.device)
-        res = _minimize(cur, take_lanes(gp._data, lane0), gp.kernel, gp.nugget_type,
-                        iters, gtol, ftol, ladder_mode)
-        fun, xs = _host(res.fun), _host(res.x)
-        if keep is not None:
-            top = np.argsort(np.where(np.isfinite(fun), fun, np.inf))[:keep]
-            cur = res.x[torch.as_tensor(top, device=cur.device)]
-        return fun, xs, cur
-
-    cur = gp._tensor(starts)
-    for stage, (iters, keep) in enumerate(plan):
-        with _phase("stage", "stage{}".format(stage), drawn.seconds if stage == 0 else 0.0,
-                    stage=stage):
-            fun, xs, cur = run_stage(cur, iters, keep, ladder)
-    if not np.isfinite(fun).any() and gp.nugget_type == "adaptive" and ladder is not False:
-        # every start failed on the reduced trajectory ladder: retry the
-        # whole schedule with the full ladder before declaring failure
-        with _phase("rescue", "rescue"):
-            cur = gp._tensor(starts)
-            for iters, keep in plan:
-                fun, xs, cur = run_stage(cur, iters, keep, False)
-
-    with _phase("refit", "refit"):
-        idx = _best(fun)
-        if idx is None:
-            print("Minimization routine failed to return a value")
-            gp.theta = None
-        else:
-            gp.fit(xs[idx])
-    return gp
 
 
 def _minimize_outputs(ems, starts, maxiter, gtol, ftol, ladder, device):
@@ -288,15 +239,84 @@ def _run_fit_chunked(ems, starts, maxiter, gtol, ftol, ladder, mesh=None):
     return fun, xs
 
 
+def _run_plan(ems, starts, plan, gtol, ftol, ladder, mesh, drawn=None):
+    """The stages of ``plan`` from ``starts`` ``(G, T, P)``: after a stage
+    with a ``keep``, the best ``keep`` restarts of each output run on.
+    With ``drawn`` (the restart draws' seconds, which ``stage0`` holds too)
+    each stage is a span ``fitting.stage``; the rescue's stages run inside
+    its own span.  Returns the last stage's ``(fun, xs)``."""
+    cur = starts
+    for stage, (iters, keep) in enumerate(plan):
+        with (contextlib.nullcontext() if drawn is None else
+              _phase("stage", "stage{}".format(stage), drawn if stage == 0 else 0.0,
+                     stage=stage)):
+            fun, xs = _run_fit_chunked(ems, cur, iters, gtol, ftol, ladder, mesh)
+            if keep is not None:
+                # non-finite restarts sort last
+                order = np.argsort(np.where(np.isfinite(fun), fun, np.inf), axis=1)[:, :keep]
+                cur = np.take_along_axis(xs, order[:, :, None], axis=1)
+    return fun, xs
+
+
+def _best(fun_row, xs_row):
+    """The raw vector of the smallest finite value, or ``None``."""
+    finite = np.isfinite(fun_row)
+    if not finite.any():
+        return None
+    return xs_row[int(np.nanargmin(np.where(finite, fun_row, np.inf)))]
+
+
+def _fit_group(ems, theta0, n_tries, plan, rescue_plan, gtol, ftol, ladder, mesh=None):
+    """The restart schedule of one signature group's outputs ``ems`` (a
+    single GP is a group of one): the starts, ``theta0`` one entry an
+    output, under the span ``fitting.starts``; the stages of ``plan``; the
+    rescue, under ``fitting.rescue``: where a reduced ladder under
+    ``nugget="adaptive"`` left an output no finite restart, it runs
+    ``rescue_plan`` again from its starts on the full ladder; each output's
+    winner.
+
+    ``rescue_plan`` is where the callers differ, as in ``mogp_tpu``: a
+    single GP reruns its race (``test_single_gp_escalation_reruns_the_schedule``),
+    a MultiOutputGP runs ``[(maxiter, None)]``
+    (``test_escalation_refits_failed_outputs_with_the_full_ladder``).
+
+    :returns: each output's winning raw vector, or ``None``.
+    """
+    with metrics.timed_span("fitting.starts") as drawn:
+        starts = np.stack([_gather_starts(em, n_tries, t) for em, t in zip(ems, theta0)])
+    fun, xs = _run_plan(ems, starts, plan, gtol, ftol, ladder, mesh, drawn.seconds)
+    won = [_best(f, x) for f, x in zip(fun, xs)]
+    failed = [r for r, raw in enumerate(won) if raw is None]
+    if failed and ems[0].nugget_type == "adaptive" and ladder is not False:
+        with _phase("rescue", "rescue"):
+            fun, xs = _run_plan([ems[r] for r in failed], starts[failed], rescue_plan, gtol,
+                                ftol, False, mesh)
+        for r, f, x in zip(failed, fun, xs):
+            won[r] = _best(f, x)
+    return won
+
+
+def _fit_single_GP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", **kwargs):
+    """Fit a single GP: its restarts are the lanes of a group of one."""
+    assert isinstance(gp, GaussianProcessBase)
+    n_tries, _, gtol, ftol, ladder, plan = _options(n_tries, method, kwargs)
+    del last_phase_times[:]
+    raw, = _fit_group([gp], [theta0], n_tries, plan, plan, gtol, ftol, ladder)
+    with _phase("refit", "refit"):
+        if raw is None:
+            print("Minimization routine failed to return a value")
+            gp.theta = None
+        else:
+            gp.fit(raw)
+    return gp
+
+
 def _fit_MOGP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", refit=False, mesh=None,
                   **kwargs):
-    """Fit the outputs of a MultiOutputGP, one batched schedule per
-    signature group, split over ``mesh`` when it is given."""
+    """Fit the outputs of a MultiOutputGP, one schedule per signature
+    group, split over ``mesh`` when it is given."""
     assert isinstance(gp, MultiOutputGP)
-    n_tries = int(n_tries)
-    assert n_tries > 0, "n_tries must be a positive integer"
-    _check_method(method)
-    maxiter, gtol, ftol, race, ladder = _extract_opt_options(dict(kwargs))
+    n_tries, maxiter, gtol, ftol, ladder, plan = _options(n_tries, method, kwargs)
 
     if theta0 is None:
         theta0 = [None] * gp.n_emulators
@@ -320,51 +340,16 @@ def _fit_MOGP_MAP(gp, n_tries=15, theta0=None, method="L-BFGS-B", refit=False, m
 
     for rel_indices in gp._groups([gp.emulators[i] for i in indices_to_fit]).values():
         global_idx = [indices_to_fit[i] for i in rel_indices]
-        ems = [gp.emulators[i] for i in global_idx]
-        em0 = ems[0]
-        with metrics.timed_span("fitting.starts") as drawn:
-            starts = np.stack([_gather_starts(em, n_tries, theta0[i])
-                               for em, i in zip(ems, global_idx)])  # (G, n_tries, P)
-        G = len(ems)
-
-        plan = _race_plan(n_tries, maxiter, race) or [(maxiter, None)]
-        cur = starts
-        for stage, (iters, keep) in enumerate(plan):
-            with _phase("stage", "stage{}".format(stage), drawn.seconds if stage == 0 else 0.0,
-                        stage=stage):
-                fun, xs = _run_fit_chunked(ems, cur, iters, gtol, ftol, ladder, mesh)
-                if keep is not None:
-                    # the best `keep` restarts of each output run on;
-                    # non-finite restarts sort last
-                    order = np.argsort(np.where(np.isfinite(fun), fun, np.inf),
-                                       axis=1)[:, :keep]
-                    cur = np.take_along_axis(xs, order[:, :, None], axis=1)
-
-        # outputs with no finite restart: rerun from their starts with the
-        # full ladder before declaring them unfit
-        failed = [r for r in range(G) if not np.isfinite(fun[r]).any()]
-        rescue = {}
-        if failed and em0.nugget_type == "adaptive" and ladder is not False:
-            with _phase("rescue", "rescue"):
-                fun_f, xs_f = _run_fit_chunked([ems[r] for r in failed], starts[failed],
-                                               maxiter, gtol, ftol, False, mesh)
-                for j, r in enumerate(failed):
-                    idx = _best(fun_f[j])
-                    if idx is not None:
-                        rescue[r] = xs_f[j, idx]
-
+        won = _fit_group([gp.emulators[i] for i in global_idx], [theta0[i] for i in global_idx],
+                         n_tries, plan, [(maxiter, None)], gtol, ftol, ladder, mesh)
         with _phase("refit", "refit"):
             fit_rows, best_raw = [], []
-            for row, em in enumerate(ems):
-                idx = _best(fun[row])
-                if idx is not None:
-                    best_raw.append(xs[row, idx])
-                elif row in rescue:
-                    best_raw.append(rescue[row])
+            for i, raw in zip(global_idx, won):
+                if raw is None:
+                    gp.emulators[i].theta = None
                 else:
-                    em.theta = None
-                    continue
-                fit_rows.append(global_idx[row])
+                    fit_rows.append(i)
+                    best_raw.append(raw)
             # the winners' artifacts, with the full ladder, in batched gp_fit calls
             if mesh is None:
                 gp._fit_lanes(fit_rows, best_raw)

@@ -21,7 +21,7 @@ are masked out.  Here that is written out over a lanes axis ``(L, P)``:
   runs to its end even when every lane has stopped inside it: reading a
   flag after every second leaf to stop early saved 1% of the leapfrogs of
   64 float32 chains on bench.py's problem and no time (one H100 80GB
-  HBM3 at 700 W, ``tools/prof_inference.py``).
+  HBM3 at 700 W; CHANGES.md, the inference slice).
 
 Sampler state is float64 whatever the potential's type: positions,
 momenta, energies, log-weights, dual averaging and the Welford windows are

@@ -28,9 +28,9 @@ one of two ways:
 
 * eagerly, each segment enqueued as it is called: a plain callable
   objective, and any objective on the CPU;
-* from CUDA graphs, for a :class:`Capturable` objective on a card: each
-  segment, and the objective's value and gradient, is captured once
-  (``ops/graphs.py``) and replayed at every later call with the same
+* from CUDA graphs, for a :class:`Capturable` objective on a card
+  (:func:`_run_graphed`): each segment, and the objective's value and
+  gradient, is captured once (``ops/graphs.py``) and replayed at every later call with the same
   shapes and options.  The captured lockstep is cached by what the graphs
   bake in, :data:`GRAPH_CACHE_SIZE` of them on each device, the least
   recently used of that device dropped first; each holds its graphs'
@@ -401,7 +401,7 @@ def clear_graphs():
         _graph_cache.clear()
 
 
-def _graphed(obj, x0, maxiter, gtol, ftol, memory, max_linesearch, c1):
+def _run_graphed(obj, x0, maxiter, gtol, ftol, memory, max_linesearch, c1):
     """:func:`_drive` from the graphs of the lockstep that ``obj`` and the
     options make, captured at the first call with this key."""
     key = (x0.dtype, tuple(x0.shape), memory, gtol, ftol, c1, obj.key,
@@ -447,7 +447,7 @@ def lbfgs_minimize(fun, x0, maxiter=200, gtol=None, ftol=None, memory=10,
     gtol, ftol = _tolerances(x0.dtype, gtol, ftol)
     if isinstance(fun, Capturable):
         if x0.device.type == "cuda":
-            return _graphed(fun, x0, maxiter, gtol, ftol, memory, max_linesearch, c1)
+            return _run_graphed(fun, x0, maxiter, gtol, ftol, memory, max_linesearch, c1)
         fn, args = fun.fn, fun.args
         fun = lambda x: fn(x, args)  # noqa: E731
     ls = _Lockstep(*x0.shape, x0.dtype, x0.device, memory, gtol, ftol, c1)

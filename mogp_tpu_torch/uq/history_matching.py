@@ -45,7 +45,7 @@ __all__ = ["HistoryMatching"]
 # query count from which a MultiOutputGP sweep runs on the emulators'
 # device (see the module doc).  The JAX package's 1 << 20 was tuned on a
 # TPU.  On one H100 (80GB HBM3, 700 W), timing both paths at 2^0 to 2^22
-# queries of the headline 64-output emulator (tools/uq_timing.py), the
+# queries of the headline 64-output emulator (CHANGES.md, the UQ slice), the
 # device sweep was the faster at every size from 2^7 on (1.02x at 2^7,
 # 2.1x at 2^11, 16x at 2^20); below it the host path was by 2-12%, within
 # 1.6-3.3 ms of fixed cost on both.

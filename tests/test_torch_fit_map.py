@@ -101,6 +101,25 @@ def test_chunking_changes_no_result(monkeypatch):
         assert a.current_logpost == b.current_logpost
 
 
+@pytest.mark.parametrize("kw", [{}, {"nugget": "fit"}, {"mean": "x[0]+x[1]"}],
+                         ids=["zero_mean", "nugget_fit", "linear_mean"])
+def test_single_gp_and_one_output_mogp_share_the_schedule(kw):
+    """A single GP runs the schedule as a group of one: from the same seed
+    it reaches the one-output MultiOutputGP's fit bit for bit."""
+    rng = np.random.RandomState(11)
+    x = rng.rand(30, 3)
+    y = np.sin(3 * x[:, 0]) + x[:, 1] * x[:, 2] + 0.1 * rng.randn(30)
+    fit = dict(n_tries=6, maxiter=30)
+    np.random.seed(6)
+    gp = mogp_tpu_torch.fit_GP_MAP(mogp_tpu_torch.GaussianProcess(x, y, device="cpu", **kw), **fit)
+    np.random.seed(6)
+    mgp = mogp_tpu_torch.fit_GP_MAP(
+        mogp_tpu_torch.MultiOutputGP(x, y[None], device="cpu", **kw), **fit)
+    em = mgp.emulators[0]
+    assert np.array_equal(gp.theta.get_data(), em.theta.get_data())
+    assert gp.current_logpost == em.current_logpost
+
+
 @pytest.fixture
 def single_rung_fails(monkeypatch):
     """Every point fails on the one-rung trajectory ladder, as near-

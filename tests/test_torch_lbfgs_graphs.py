@@ -92,7 +92,7 @@ def stand_in(monkeypatch):
 def _graphed(fun, x0, maxiter, max_linesearch=2):
     """The graphed runner as ``lbfgs_minimize`` calls it on a card."""
     gtol, ftol = lbfgs._tolerances(x0.dtype)
-    return lbfgs._graphed(fun, x0, maxiter, gtol, ftol, 10, max_linesearch, 1e-4)
+    return lbfgs._run_graphed(fun, x0, maxiter, gtol, ftol, 10, max_linesearch, 1e-4)
 
 
 def _kept(device=torch.device("cpu")):
@@ -366,7 +366,7 @@ def test_each_card_of_a_mesh_keeps_its_own_captures(stand_in):
         gtol, ftol = lbfgs._tolerances(x0.dtype)
         key = (x0.dtype, tuple(x0.shape), 10, gtol, ftol, 1e-4, fun.key,
                tuple((tuple(a.shape), a.dtype) for a in fun.args))
-        # _graphed's lookup, on a card the CPU cannot hold a tensor on
+        # _run_graphed's lookup, on a card the CPU cannot hold a tensor on
         entry = lbfgs._captured(device, key, lambda: lbfgs._Captured(fun, x0, 10, gtol, ftol,
                                                                      1e-4))
         entry.load(fun.args, x0)
