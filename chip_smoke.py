@@ -23,8 +23,10 @@ Phases (any failure raises, so the exit code is not 0):
    route's bounds, M = 0 and 15, with ``unc`` on and off, and at the main
    path's own tile on a sample of its columns; timed against the plain
    version and the unfused chain it replaces (K1, the products, cuBLAS's
-   triangular solve, the sums); K2, the batched Cholesky (2b), up to its
-   shared-memory bound (n = 340 in float32, 240 in float64), every call
+   triangular solve, the sums), at M = 15 on both bases; its blocks
+   resident on an SM, and its launches that took the mean-term stage; K2,
+   the batched Cholesky (2b), up to its shared-memory bound (n = 340 in
+   float32, 240 in float64), every call
    launching K2 once; K3-K5, the blocked Cholesky variants v1-v3 (2c), above
    that bound up to n = 8192 (the large-n fit's (1, 4096) and (1, 8192),
    its MAP fit's (4, 4096) lanes, its float64 fit's (1, 4096), phase 8's
@@ -807,12 +809,13 @@ def phase_fused(pf, km, main_shape):
               for dt in (f32, f64)]
     for seed, (dtype, shape, M, base) in enumerate(cases):
         args, args64 = fused_problem(shape, M, base, seed, dtype)
-        before = pf.launches
+        before, before_mean = pf.launches, pf.mean_launches
         mu, var = pf.predict_fused(*args, base=base)
         mu_nounc, var_nounc = pf.predict_fused(*args, unc=False, base=base)
         torch.cuda.synchronize()
-        if pf.launches != before + 2:
-            raise AssertionError("predict_fused did not launch its kernel")
+        if pf.launches != before + 2 or pf.mean_launches != before_mean + 2 * (M > 0):
+            raise AssertionError("predict_fused did not launch its kernel, or the mean-term "
+                                 "stage's count is off")
         line, ok, _ = fused_errors(pf, km, mu, var, args64, dtype, base)
         ok = ok and var_nounc is None and torch.equal(mu, mu_nounc)
         print("phase 2d: predict_fused {} {} M={} {}: {}; unc off: same mu, no var {}".format(
@@ -842,43 +845,62 @@ def phase_fused(pf, km, main_shape):
     del args, args64, mu, var, sub
     torch.cuda.empty_cache()
 
-    def unfused(x1, x2, et, s2, Lk, alpha, Kinv_dm, dmtest, beta, LA, var_shift):
+    def unfused(x1, x2, et, s2, Lk, alpha, Kinv_dm, dmtest, beta, LA, var_shift, base):
         """Today's chain on the card before the fused kernel: K1, then the
         products, cuBLAS's triangular solve and the reductions."""
-        K = km.kernel_matrix(x1, x2, et, s2)
+        K = km.kernel_matrix(x1, x2, et, s2, base=base)
         mu = (dmtest @ beta[..., None])[..., 0] + (K.transpose(-1, -2) @ alpha[..., None])[..., 0]
         R = dmtest.T - Kinv_dm.transpose(-1, -2) @ K
         v = torch.linalg.solve_triangular(Lk, K, upper=False)
         u = torch.linalg.solve_triangular(LA, R, upper=False) if LA.shape[-1] else R
         return mu, torch.clamp_min(var_shift[:, None] - (v**2).sum(-2) + (u**2).sum(-2), 0.0)
 
+    # the headline tile at M = 0 and 15, and at M = 15 on the Matern base
+    # too (the universal-kriging emulator's), where the mean-term stage's mu
+    # must equal the one without unc bit for bit
     timings = {}
     for dtype in (f32, f64):
-        for M in (min(M, K1_SHAPE[3] + 1) for M in FUSED_M):
-            args, _ = fused_problem(K1_SHAPE, M, "sqexp", 7, dtype)
+        for M, base in ((0, "sqexp"), (15, "sqexp"), (15, "mat52")):
+            M = min(M, K1_SHAPE[3] + 1)
+            args, _ = fused_problem(K1_SHAPE, M, base, 7, dtype)
 
             def kern():
-                return pf.predict_fused(*args)
+                return pf.predict_fused(*args, base=base)
 
             def plain():
-                return pf.predict_fused_plain(*args)
+                return pf.predict_fused_plain(*args, base=base)
 
             def chain():
-                return unfused(*args)
+                return unfused(*args, base=base)
 
+            if M and not torch.equal(kern()[0], pf.predict_fused(*args, unc=False, base=base)[0]):
+                raise AssertionError("predict_fused's mu differs with unc off at M = {}".format(M))
             # plain, unfused, kernel, kernel, unfused, plain on one card
             p1, u1, k1, k2, u2, p2 = (time_ms(plain), time_ms(chain), time_ms(kern),
                                       time_ms(kern), time_ms(chain), time_ms(plain))
             ms, plain_ms, chain_ms = (k1 + k2) / 2, (p1 + p2) / 2, (u1 + u2) / 2
             bound, bound_by = fused_bound_ms(K1_SHAPE, M)
-            print("phase 2d: time predict_fused {} M={} {}: kernel {} ms ({} {}), unfused chain "
-                  "{} ms ({} {}), plain {} ms ({} {}); bound (float32 peaks) {} ms ({}), {} of "
-                  "it".format(str(dtype)[6:], M, K1_SHAPE, ms, k1, k2, chain_ms, u1, u2,
-                              plain_ms, p1, p2, bound, bound_by, bound / ms))
-            timings[(dtype, M)] = (ms, plain_ms, chain_ms, bound, bound_by)
+            print("phase 2d: time predict_fused {} {} M={} {}: kernel {} ms ({} {}), unfused "
+                  "chain {} ms ({} {}), plain {} ms ({} {}); bound (float32 peaks) {} ms ({}), "
+                  "{} of it{}".format(str(dtype)[6:], base, M, K1_SHAPE, ms, k1, k2, chain_ms, u1,
+                                      u2, plain_ms, p1, p2, bound, bound_by, bound / ms,
+                                      "; unc off: same mu" if M else ""))
+            timings[(dtype, M, base)] = (ms, plain_ms, chain_ms, bound, bound_by)
             del args
             torch.cuda.empty_cache()
-    ms, plain_ms, chain_ms, bound, bound_by = timings[(f32, 0)]
+    # blocks resident on an SM at the headline n: two in float32, M = 0 and 15
+    from mogp_tpu_torch.ops import _build
+
+    occupancy = {(M, base): _build.library().mogp_predict_fused_occupancy(
+        N_POINTS, M, km._BASES[base], 0) for M in (0, 15) for base in ("sqexp", "mat52")}
+    print("phase 2d: predict_fused float32 blocks an SM at n = {}: {}; launches {}, of them "
+          "through the mean-term stage (M > 0) {}".format(
+              N_POINTS, ", ".join("M={} {}: {}".format(M, b, v)
+                                  for (M, b), v in occupancy.items()),
+              pf.launches, pf.mean_launches))
+    if min(occupancy.values()) < 2:
+        raise AssertionError("predict_fused holds fewer than two blocks an SM")
+    ms, plain_ms, chain_ms, bound, bound_by = timings[(f32, 0, "sqexp")]
     return {
         "name": "predict_fused",
         "route": "cuda",
@@ -899,6 +921,9 @@ def phase_fused(pf, km, main_shape):
         "unfused_ms": chain_ms,
         "main_path_shape": list(main_shape),
         "main_path_ms": main_ms,
+        # the mean-term stage at the headline tile, float32
+        "ms_m15": {base: timings[(f32, 15, base)][0] for base in ("sqexp", "mat52")},
+        "blocks_per_sm": {"M{}_{}".format(M, b): v for (M, b), v in occupancy.items()},
     }
 
 

@@ -55,6 +55,23 @@
 //   and p + 1 are used.  There is no explicit inverse of Lk: at the jittered
 //   long-lengthscale lanes K's condition is 1e7-1e8 and var is a difference
 //   of nearly equal terms.
+// * The mean-term stage (M > 0: k . alpha, r, the mean and |u|^2; a template
+//   parameter taken from M > 0, so that M = 0 keeps its own code) adds 2 n M
+//   + M^2 flops, 12% of the rest at n = 210, M = 15.  Read a scalar at a time
+//   from device memory (Kinv_dm at stride M, dmtest, LA), with the M x M
+//   substitution on 64 threads through global loads, it was bound by load
+//   latency: on an H100 the kernel took 1.66 times as long as at M = 0 (1.81
+//   against 1.09 ms at (64, 210, 4864, 14), float32).  Its design: the M + 1
+//   vectors [alpha | Kinv_dm] go 16 at a time into the third strip buffer
+//   (free until the substitution's first panel) by cp.async, element by
+//   element and coalesced (Kinv_dm's rows are M contiguous elements), the
+//   tile's design rows, beta and LA's packed lower triangle beside them in
+//   the same group; the product runs on all 256
+//   threads as a 4 x 4 register tile (16 FFMA to two 16-byte loads), each
+//   thread over a quarter of the rows in two chains, the quarters reduced by
+//   warp shuffles in a fixed order (the same with and without unc); the
+//   substitution u = LA^-1 r runs in registers, one query column a thread,
+//   reading shared memory only.  Then 1.31 ms against 1.06 at M = 0.
 //
 // The distance uses the direct-difference form: with D this small it costs
 // the same as the matmul form |z1|^2 + |z2|^2 - 2 z1.z2 and has no
@@ -82,9 +99,13 @@ constexpr int kK1Cols = 128;
 template <typename T>
 constexpr int kK1MaxRows = sizeof(T) == 4 ? 112 : 56;
 
-// the fused kernel: queries per block, rows per substitution panel
+// the fused kernel: queries per block, rows per substitution panel; the
+// mean-term stage's vectors per chunk, and the most mean terms (M_FUSED)
 constexpr int kQ = 64;
 constexpr int kPanel = 16;
+constexpr int kVecs = 16;
+constexpr int kMaxMean = 32;
+static_assert(kVecs == kPanel, "a chunk of vectors fills one strip buffer");
 
 __device__ __forceinline__ float dev_exp(float x) { return expf(x); }
 __device__ __forceinline__ double dev_exp(double x) { return exp(x); }
@@ -125,6 +146,13 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// one element global -> shared by cp.async, zero-filled where !valid
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "n"(static_cast<int>(sizeof(T))), "r"(valid ? static_cast<int>(sizeof(T)) : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -316,7 +344,9 @@ __host__ __device__ constexpr int fused_region_elems(int n) {
 }
 
 // dynamic shared memory of the fused kernel, in elements: the n x kQ tile,
-// the region, r / u (M x kQ), eight rows of partial sums and k . alpha
+// the region, the design rows and r (M x kQ), and nine rows of kQ: eight of
+// partial sums at M = 0; LA packed and beta (at most 560 elements) at M > 0
+static_assert(kMaxMean * (kMaxMean + 1) / 2 + kMaxMean <= 9 * kQ, "LA and beta fit");
 __host__ __device__ constexpr int fused_smem_elems(int n, int M) {
   return n * kQ + fused_region_elems(n) + ((M > 0 ? M : 1) + 9) * kQ;
 }
@@ -382,7 +412,164 @@ __device__ __forceinline__ void diag_solve(T (&v)[kPanel], const T* dblk, int bw
   }
 }
 
-template <typename T, int Base>
+// ---------------------------------------------------------------------------
+// The mean-term stage (M > 0).  The products with the M + 1 vectors [alpha |
+// Kinv_dm] go a chunk of kVecs vectors at a time through shared memory
+// (load_vectors).  Thread t holds a 4 x 4 micro-tile, vectors 4 vg .. 4 vg +
+// 3 of the chunk (vg = t / 64) by four query columns (mean_col), over the
+// rows s, s + 4, ... (slice s = lane / 8 of 4); the four slices of a tile
+// are lanes 8 apart in one warp.
+// ---------------------------------------------------------------------------
+
+// query column of element e of micro-tile column group g (0 .. 15): one
+// 16-byte piece in float32, two 32 columns apart in float64, so that a
+// quarter-warp reads 128 contiguous bytes of a tile row
+template <typename T>
+__device__ __forceinline__ int mean_col(int g, int e) {
+  constexpr int kV = 16 / sizeof(T);
+  return (e / kV) * (kQ * kV / 4) + g * kV + e % kV;
+}
+
+// the four elements of a micro-tile row: 16-byte pieces at p, p + step
+template <typename T>
+__device__ __forceinline__ void lds4(const T* p, int step, T (&v)[4]) {
+  constexpr int kV = 16 / sizeof(T);
+#pragma unroll
+  for (int k = 0; k < 4; k += kV) lds16(p + (k / kV) * step, v + k);
+}
+template <typename T>
+__device__ __forceinline__ void sts4(T* p, int step, const T (&v)[4]) {
+  constexpr int kV = 16 / sizeof(T);
+#pragma unroll
+  for (int k = 0; k < 4; k += kV) sts16(p + (k / kV) * step, v + k);
+}
+
+// v[s], by selects, so that v stays in registers
+template <typename T>
+__device__ __forceinline__ T pick(const T (&v)[4], int s) {
+  T x = v[0];
+#pragma unroll
+  for (int e = 1; e < 4; ++e) x = e == s ? v[e] : x;
+  return x;
+}
+
+// the tile's design rows transposed, dm[a * kQ + c] = dmtest[j0 + c, a]
+// (zero at or beyond m), beta, and, with unc, LA's lower triangle packed by
+// rows (row a at a (a + 1) / 2); element by element, consecutive threads on
+// consecutive addresses
+template <typename T>
+__device__ __forceinline__ void load_mean_terms(const T* __restrict__ dmtest,
+                                                const T* __restrict__ beta_lane,
+                                                const T* __restrict__ LA_lane, int j0, int m,
+                                                int M, int unc, T* dm, T* lap, T* betas) {
+  for (int k = threadIdx.x; k < kQ * M; k += kThreads) {
+    const int c = k / M;
+    const bool valid = j0 + c < m;
+    cp_async_elem(dm + (k - c * M) * kQ + c,
+                  dmtest + (valid ? static_cast<size_t>(j0) * M + k : 0), valid);
+  }
+  for (int k = threadIdx.x; k < M; k += kThreads) cp_async_elem(betas + k, beta_lane + k, true);
+  if (unc) {
+    for (int k = threadIdx.x; k < M * M; k += kThreads) {
+      const int a = k / M;
+      const int b = k - a * M;
+      if (b <= a) cp_async_elem(lap + a * (a + 1) / 2 + b, LA_lane + k, true);
+    }
+  }
+}
+
+// chunk ch of the vectors, w[i * kVecs + c] = vector ch kVecs + c at row i
+// (vector 0: alpha, vector a + 1: column a of Kinv_dm; zero beyond M),
+// element by element, consecutive threads on consecutive vectors of a row
+template <typename T>
+__device__ __forceinline__ void load_vectors(const T* __restrict__ alpha_lane,
+                                             const T* __restrict__ Kinv_lane, int n, int M,
+                                             int ch, T* w) {
+  for (int k = threadIdx.x; k < n * kVecs; k += kThreads) {
+    const int i = k / kVecs;
+    const int c = ch * kVecs + k % kVecs;
+    const T* src = c == 0 ? alpha_lane + i : Kinv_lane + static_cast<size_t>(i) * M + c - 1;
+    cp_async_elem(w + k, c <= M ? src : alpha_lane, c <= M);
+  }
+}
+
+// thread t's micro-tile of W^T V over its slice, as two chains (rows s +
+// 8 k and s + 4 + 8 k) summed, the four slices then summed by two butterfly
+// shuffles, ((s0 + s1) + (s2 + s3)) in every lane of the four: the order
+// depends on n alone
+template <typename T>
+__device__ __forceinline__ void mean_product(const T* V, const T* wbuf, int n, T (&acc)[4][4]) {
+  constexpr int kV = 16 / sizeof(T);
+  const int t = threadIdx.x;
+  const int g = ((t / 32) % 2) * 8 + t % 8;
+  const T* w_t = wbuf + (t / 64) * 4;
+  const T* v_t = V + g * kV;
+  T chain[2][4][4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) chain[c][v][e] = T(0);
+    }
+  }
+#pragma unroll 2
+  for (int i = (t % 32) / 8; i < n; i += 8) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int r = i + 4 * c;
+      if (r < n) {
+        T w[4], k[4];
+        lds4(w_t + r * kVecs, kV, w);
+        lds4(v_t + r * kQ, kQ * kV / 4, k);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) chain[c][v][e] = dev_fma(w[v], k[e], chain[c][v][e]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[v][e] = chain[0][v][e] + chain[1][v][e];
+  }
+#pragma unroll
+  for (int lanes = 8; lanes < 32; lanes *= 2) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[v][e] += __shfl_xor_sync(0xffffffffu, acc[v][e], lanes);
+    }
+  }
+}
+
+// |u|^2 of query column t, u = LA^-1 r by forward substitution in
+// registers (column by column; each u[a] takes its terms in the order b =
+// 0 .. a - 1, as a row-by-row substitution does), LA packed in shared
+template <typename T>
+__device__ __forceinline__ T mean_solve(const T* r, const T* lap, int M) {
+  const int t = threadIdx.x;
+  T x[kMaxMean];
+#pragma unroll
+  for (int a = 0; a < kMaxMean; ++a) x[a] = a < M ? r[a * kQ + t] : T(0);
+  T u2 = T(0);
+#pragma unroll
+  for (int a = 0; a < kMaxMean; ++a) {
+    if (a < M) {
+      const T u = x[a] / lap[a * (a + 1) / 2 + a];
+      u2 = dev_fma(u, u, u2);
+#pragma unroll
+      for (int b = a + 1; b < kMaxMean; ++b) {
+        if (b < M) x[b] = dev_fma(-lap[b * (b + 1) / 2 + a], u, x[b]);
+      }
+    }
+  }
+  return u2;
+}
+
+template <typename T, int Base, bool kMean>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)
 predict_fused_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
                      const T* __restrict__ exp_theta, const T* __restrict__ sigma2,
@@ -401,22 +588,34 @@ predict_fused_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* V = reinterpret_cast<T*>(smem_raw);  // [n][kQ]: K*, then v in place
   T* region = V + n * kQ;                 // the build's stage, then 3 strips
-  T* rs = region + fused_region_elems(n); // [M][kQ]: r, then u in place
-  T* part = rs + (M > 0 ? M : 1) * kQ;    // [kWarps][kQ]: partial sums
-  T* kalpha = part + kWarps * kQ;         // [kQ]: k . alpha
+  T* rs = region + fused_region_elems(n); // [M][kQ]: the design rows, then r
+  T* part = rs + (M > 0 ? M : 1) * kQ;    // M = 0: [kWarps][kQ] partial sums;
+                                          // M > 0: LA packed, then beta
 
   const int lane = blockIdx.y;
   const int j0 = blockIdx.x * kQ;
   const int t = threadIdx.x;
   const T* Lk_lane = Lk + static_cast<size_t>(lane) * n * ldl;
   const int sz = strip_elems(n);
+  const T* alpha_lane = alpha + static_cast<size_t>(lane) * n;
+  const T* Kinv_lane = Kinv_dm + static_cast<size_t>(lane) * n * M;
 
   // 1. K* for this lane and query tile
   build_tile<T, Base, kQ>(x1 + static_cast<size_t>(lane) * n * D, x2,
                           exp_theta + static_cast<size_t>(lane) * D, sigma2[lane], 0, n, j0, m,
                           D, V, kQ, region);
 
-  // the factor's first two strips land while the mean and r are formed
+  // the mean stage's operands (the first chunk of vectors into the third
+  // strip buffer, free until the substitution's first panel), then the
+  // factor's first two strips, land while the mean and r are formed
+  T* wbuf = region + 2 * sz;
+  T* betas = part + M * (M + 1) / 2;
+  if constexpr (kMean) {
+    load_vectors(alpha_lane, Kinv_lane, n, M, 0, wbuf);
+    load_mean_terms(dmtest, beta + static_cast<size_t>(lane) * M,
+                    LA + static_cast<size_t>(lane) * M * M, j0, m, M, unc, rs, part, betas);
+    cp_async_commit();
+  }
   if (unc) {
     load_strip(Lk_lane, n, ldl, 0, region);
     cp_async_commit();
@@ -426,90 +625,96 @@ predict_fused_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
     }
   }
 
-  // 2. k . alpha and, with unc, Kinv_dm^T k, before the substitution
-  // overwrites k.  Vector w (0: alpha, a + 1: column a of Kinv_dm) is split
-  // into S row slices when there are fewer vectors than warps; item w S + s
-  // is warp (w S + s) % 8's, each thread taking columns ln and ln + 32.
-  // S depends on M alone, so that k . alpha sums in one order with and
-  // without unc
-  const int nvec = unc ? M + 1 : 1;
-  const int S = M + 1 >= kWarps ? 1 : kWarps / (M + 1);
-  {
-    const int warp = t / 32;
-    const int ln = t % 32;
-    for (int item = warp; item < nvec * S; item += kWarps) {
-      const int w = item / S;
-      const int sl = item - w * S;
-      const T* src = w == 0 ? alpha + static_cast<size_t>(lane) * n
-                            : Kinv_dm + static_cast<size_t>(lane) * n * M + (w - 1);
-      const int stride = w == 0 ? 1 : M;
+  T u2 = T(0);
+  if constexpr (kMean) {
+    // 2. the mean, r = dmtest_j - Kinv_dm^T k and k . alpha, chunk by chunk
+    // (mean_product); vector 16 ch + 4 vg + s of the micro-tile goes out by
+    // lane s, and k . alpha with the mean of column mean_col(g, s) by lane s
+    // of the warps with vg = 0 (threads 0 .. kQ - 1)
+    if (!unc) {
+      cp_async_wait<0>();
+    } else if (kPanel < n) {
+      cp_async_wait<2>();
+    } else {
+      cp_async_wait<1>();
+    }
+    __syncthreads();
+    const int g = ((t / 32) % 2) * 8 + t % 8;
+    const int s = (t % 32) / 8;
+    const int mc = mean_col<T>(g, s);
+    T mt = T(0);
+    if (t < kQ) {
+#pragma unroll 4
+      for (int a = 0; a < M; ++a) mt = dev_fma(rs[a * kQ + mc], betas[a], mt);
+    }
+    __syncthreads();  // every design row read before r overwrites it
+    const int nch = unc ? (M + kVecs) / kVecs : 1;
+    for (int ch = 0; ch < nch; ++ch) {
+      if (ch > 0) {
+        __syncthreads();
+        load_vectors(alpha_lane, Kinv_lane, n, M, ch, wbuf);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      T acc[4][4];
+      mean_product(V, wbuf, n, acc);
+      // k . alpha of column mc is acc[0][s]
+      if (ch == 0 && t < kQ && j0 + mc < m) {
+        mu[static_cast<size_t>(lane) * m + j0 + mc] = mt + pick(acc[0], s);
+      }
+      const int a = ch * kVecs + (t / 64) * 4 + s - 1;  // this lane's column of Kinv_dm
+      if (unc && a >= 0 && a < M) {
+        constexpr int kV = 16 / sizeof(T);
+        T d[4];
+        lds4(rs + a * kQ + g * kV, kQ * kV / 4, d);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const T col[4] = {acc[0][e], acc[1][e], acc[2][e], acc[3][e]};
+          d[e] = d[e] - pick(col, s);
+        }
+        sts4(rs + a * kQ + g * kV, kQ * kV / 4, d);
+      }
+    }
+    if (!unc) return;
+    __syncthreads();
+    // 3. |u|^2 of column t, u = LA^-1 r
+    if (t < kQ) u2 = mean_solve(rs, part, M);
+  } else {
+    // 2. k . alpha before the substitution overwrites k: row slice w of 8 by
+    // warp w, each thread taking columns ln and ln + 32
+    {
+      const int warp = t / 32;
+      const int ln = t % 32;
+      const T* src = alpha_lane;
       T a0[2] = {T(0), T(0)};
       T a1[2] = {T(0), T(0)};
-      for (int i = sl; i < n; i += 2 * S) {
+      for (int i = warp; i < n; i += 2 * kWarps) {
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
-          const int ii = i + q * S;
+          const int ii = i + q * kWarps;
           if (ii < n) {
-            const T wi = __ldg(src + static_cast<size_t>(ii) * stride);
+            const T wi = __ldg(src + ii);
             a0[q] = dev_fma(wi, V[ii * kQ + ln], a0[q]);
             a1[q] = dev_fma(wi, V[ii * kQ + ln + 32], a1[q]);
           }
         }
       }
-      const T s0 = a0[0] + a0[1];
-      const T s1 = a1[0] + a1[1];
-      if (S > 1) {
-        part[item * kQ + ln] = s0;
-        part[item * kQ + ln + 32] = s1;
-      } else if (w == 0) {
-        kalpha[ln] = s0;
-        kalpha[ln + 32] = s1;
-      } else {
-        const int a = w - 1;
-        const int ja = j0 + ln, jb = j0 + ln + 32;
-        rs[a * kQ + ln] = (ja < m ? dmtest[static_cast<size_t>(ja) * M + a] : T(0)) - s0;
-        rs[a * kQ + ln + 32] = (jb < m ? dmtest[static_cast<size_t>(jb) * M + a] : T(0)) - s1;
-      }
+      part[warp * kQ + ln] = a0[0] + a0[1];
+      part[warp * kQ + ln + 32] = a1[0] + a1[1];
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // 3. one thread per query column: the slices' sums, the mean, and |u|^2
-  // from the M x M forward substitution u = LA^-1 r in place
-  T u2 = T(0);
-  if (t < kQ) {
-    const int j = j0 + t;
-    if (S > 1) {
-      for (int w = 0; w < nvec; ++w) {
-        T sum = T(0);
-        for (int sl = 0; sl < S; ++sl) sum += part[(w * S + sl) * kQ + t];
-        if (w == 0) {
-          kalpha[t] = sum;
-        } else {
-          rs[(w - 1) * kQ + t] = (j < m ? dmtest[static_cast<size_t>(j) * M + w - 1] : T(0)) - sum;
-        }
-      }
+    // 3. one thread per query column: the slices' sums, and the (zero) mean
+    if (t < kQ) {
+      const int j = j0 + t;
+      T sum = T(0);
+      for (int sl = 0; sl < kWarps; ++sl) sum += part[sl * kQ + t];
+      const T mt = T(0);
+      if (j < m) mu[static_cast<size_t>(lane) * m + j] = mt + sum;
     }
-    T mt = T(0);
-    if (j < m) {
-      for (int a = 0; a < M; ++a) {
-        mt = dev_fma(dmtest[static_cast<size_t>(j) * M + a],
-                     beta[static_cast<size_t>(lane) * M + a], mt);
-      }
-      mu[static_cast<size_t>(lane) * m + j] = mt + kalpha[t];
-    }
-    if (unc) {
-      const T* LA_lane = LA + static_cast<size_t>(lane) * M * M;
-      for (int a = 0; a < M; ++a) {
-        T s = rs[a * kQ + t];
-        for (int b = 0; b < a; ++b) s = dev_fma(-__ldg(LA_lane + a * M + b), rs[b * kQ + t], s);
-        const T u = s / __ldg(LA_lane + a * M + a);
-        rs[a * kQ + t] = u;
-        u2 = dev_fma(u, u, u2);
-      }
-    }
+    if (!unc) return;
   }
-  if (!unc) return;
 
   // 4. v = Lk^-1 k in place, over panels of kPanel rows, with a look-ahead:
   // while threads kQ.. apply panel p to the rows below panel p + 1, threads
@@ -635,12 +840,20 @@ int launch_kernel_matrix(const void* x1, const void* x2, const void* exp_theta,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the instantiation for M: the mean-term stage where M > 0
+template <typename T, int Base>
+auto fused_instance(int M) {
+  return M > 0 ? predict_fused_kernel<T, Base, true> : predict_fused_kernel<T, Base, false>;
+}
+
 template <typename T, int Base>
 int launch_predict_fused(const void* const* p, void* mu, void* var, int L, int n, int ldl, int m,
                          int D, int M, int unc, cudaStream_t stream) {
-  if (ldl < n || (ldl * sizeof(T)) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (ldl < n || (ldl * sizeof(T)) % 16 != 0 || M < 0 || M > kMaxMean) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t smem = sizeof(T) * static_cast<size_t>(fused_smem_elems(n, M));
-  auto k = predict_fused_kernel<T, Base>;
+  auto k = fused_instance<T, Base>(M);
   cudaError_t err = allow_smem(k, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((m + kQ - 1) / kQ, L);
@@ -649,6 +862,18 @@ int launch_predict_fused(const void* const* p, void* mu, void* var, int L, int n
                                       q[10], static_cast<T*>(mu), static_cast<T*>(var), n, ldl, m,
                                       D, M, unc);
   return static_cast<int>(cudaGetLastError());
+}
+
+// blocks of the instantiation for (n, M) that one SM holds
+template <typename T, int Base>
+int predict_fused_occupancy(int n, int M, int* blocks) {
+  const size_t smem = sizeof(T) * static_cast<size_t>(fused_smem_elems(n, M));
+  auto k = fused_instance<T, Base>(M);
+  cudaError_t err = allow_smem(k, smem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kThreads, smem);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -682,7 +907,7 @@ long long mogp_predict_fused_smem(int n, int M, int elem_bytes) {
 // sigma2 (L), Lk (L, n, ldl) lower, its rows padded to ldl >= n elements (a
 // multiple of 16 bytes), alpha (L, n), Kinv_dm (L, n, M), dmtest (m, M),
 // beta (L, M), LA (L, M, M) lower, var_shift (L); all contiguous, one
-// floating type.  Writes mu (L, m) and, if unc, var (L, m).
+// floating type; M <= 32.  Writes mu (L, m) and, if unc, var (L, m).
 int mogp_predict_fused(const void* const* ptrs, void* mu, void* var, int L, int n, int ldl, int m,
                        int D, int M, int unc, int base, int is_double, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -697,6 +922,22 @@ int mogp_predict_fused(const void* const* ptrs, void* mu, void* var, int L, int 
                : launch_predict_fused<float, kMat52>(ptrs, mu, var, L, n, ldl, m, D, M, unc, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Blocks of the fused kernel resident on one SM at n training points and M
+// mean terms (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or a negative
+// cudaError_t.
+int mogp_predict_fused_occupancy(int n, int M, int base, int is_double) {
+  int blocks = 0;
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (base == kSqExp) {
+    err = is_double ? predict_fused_occupancy<double, kSqExp>(n, M, &blocks)
+                    : predict_fused_occupancy<float, kSqExp>(n, M, &blocks);
+  } else if (base == kMat52) {
+    err = is_double ? predict_fused_occupancy<double, kMat52>(n, M, &blocks)
+                    : predict_fused_occupancy<float, kMat52>(n, M, &blocks);
+  }
+  return err ? -err : blocks;
 }
 
 const char* mogp_cuda_error_string(int err) {

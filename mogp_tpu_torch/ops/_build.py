@@ -128,6 +128,9 @@ def _load():
     fn = lib.mogp_predict_fused
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.mogp_predict_fused_occupancy
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
     fn = lib.mogp_predict_fused_smem
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong

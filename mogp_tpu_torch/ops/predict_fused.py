@@ -11,8 +11,9 @@ cross-covariance of ``ops/kernel_matrix.py``.
 
 * On a CUDA tensor :func:`predict_fused` launches the fused kernel of
   ``csrc/kernel_matrix.cu`` (built at first use by ``ops/_build.py``) and
-  adds one to :data:`launches`.  It does not catch build or launch errors
-  and never falls back to the plain version.
+  adds one to :data:`launches`, and to :data:`mean_launches` where the
+  launch took the mean-term stage (``M > 0``).  It does not catch build
+  or launch errors and never falls back to the plain version.
 * On a CPU tensor it calls :func:`predict_fused_plain`, which is what the
   CPU tests run: K1's plain version, ``torch.linalg.solve_triangular`` and
   the reductions, the unfused chain itself.
@@ -37,10 +38,13 @@ __all__ = [
     "M_FUSED",
     "QUERIES_PER_BLOCK",
     "launches",
+    "mean_launches",
 ]
 
-# launches of the CUDA kernel in this process; callers may reset it
+# launches of the CUDA kernel in this process, and those of them that took
+# the mean-term stage (M > 0); callers may reset them
 launches = 0
+mean_launches = 0
 
 # dynamic shared memory one block may opt into on Hopper (227 KB)
 MAX_SHARED_BYTES = 232_448
@@ -190,7 +194,8 @@ def predict_fused(x1, x2, exp_theta, sigma2, Lk, alpha, Kinv_dm, dmtest, beta, L
         raise KernelError(
             "predict_fused launch failed: {}".format(lib.mogp_cuda_error_string(err).decode())
         )
-    global launches
+    global launches, mean_launches
     with count_lock:
         launches += 1
+        mean_launches += int(M > 0)
     return mu, var

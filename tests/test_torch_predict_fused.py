@@ -226,6 +226,87 @@ def test_blocked_substitution_order_in_float32(base):
             assert np.isfinite(err_mine) and err_mine <= 2.0 * err_lib, (err_mine, err_lib)
 
 
+def _fma32(a, b, c):
+    """float32 ``a * b + c`` rounded once, as the card's FFMA (the product
+    is exact in float64; the sum is rounded twice, which differs from once
+    only at rare ties)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _mean_stage_f32(W, V, dm, LA):
+    """The kernel's mean-term stage in float32: ``P = W^T V`` (``W`` the
+    vectors ``[alpha | Kinv_dm]``, ``V`` the n x 64 tile of K*) as four row
+    slices, slice ``s`` two FMA chains in row order (rows ``s + 8 k`` and
+    ``s + 4 + 8 k``) summed, the slices summed ``(s0 + s1) + (s2 + s3)``; ``r = dm^T - P[1:]``; ``u = LA^-1 r`` column
+    by column, dividing by the pivots, and ``|u|^2`` one FMA chain.  Returns
+    ``(k . alpha, r, |u|^2)``."""
+    W, V = W.astype(np.float32), V.astype(np.float32)
+    parts = []
+    for s in range(4):
+        chains = []
+        for i0 in (s, s + 4):
+            acc = np.zeros((W.shape[1], V.shape[1]), np.float32)
+            for i in range(i0, V.shape[0], 8):
+                acc = _fma32(W[i, :, None], V[i, None, :], acc)
+            chains.append(acc)
+        parts.append(chains[0] + chains[1])
+    P = (parts[0] + parts[1]) + (parts[2] + parts[3])
+    r = dm.T.astype(np.float32) - P[1:]
+    LA = LA.astype(np.float32)
+    x, u2 = r.copy(), np.zeros(V.shape[1], np.float32)
+    for a in range(LA.shape[0]):
+        u = x[a] / LA[a, a]
+        u2 = _fma32(u, u, u2)
+        x[a + 1:] = _fma32(-LA[a + 1:, a, None], u[None, :], x[a + 1:])
+    return P[0], r, u2
+
+
+@pytest.mark.parametrize("M", [1, 15, 16, 32])
+def test_mean_stage_order_in_float32(M):
+    """Phase 2d's rule for the mean-term stage: in float32 against float64,
+    the kernel's order (``_mean_stage_f32``; 16 vectors a chunk, so M = 15,
+    16 and 32 take one, two and three chunks) may err at most 2x what
+    torch's float32 ``Kinv_dm^T @ K*`` and ``solve_triangular`` err, at the
+    universal-kriging shape: n = 210, D = 14, Matern 5/2, lanes with long
+    lengthscales at the jitter rung, a mean (the intercept, the inputs,
+    then their squares) that explains most of y, and A with the prior
+    N(0, 1) on the coefficients."""
+    from mogp_tpu_torch.ops.kernel_matrix import kernel_matrix_plain
+    from mogp_tpu_torch.ops.kernels import _BASE_FNS, squared_distance
+
+    rng = np.random.RandomState(25)
+    n, Dh, q = 210, 14, 64
+    x1, x2 = rng.rand(1, n, Dh), rng.rand(q, Dh)
+
+    def design(x):
+        return np.concatenate([np.ones_like(x[:, :1]), x, x**2, x**3], axis=1)[:, :M]
+
+    H, dm = design(x1[0]), design(x2)
+    for log_scale in (0.0, -3.0):
+        et = torch.full((1, Dh), np.exp(log_scale), dtype=torch.float64)
+        s2 = torch.ones(1, dtype=torch.float64)
+        x1t = torch.as_tensor(x1)
+        K = (_BASE_FNS["mat52"](squared_distance(x1t, x1t, et))[0]
+             + 1e-6 * torch.eye(n, dtype=torch.float64)).numpy()
+        Ks = kernel_matrix_plain(x1t, torch.as_tensor(x2), et, s2, "mat52")[0].numpy()
+        y = H @ rng.randn(M) + 0.05 * rng.randn(n)
+        Kinv_dm, Kinv_y = np.linalg.solve(K, H), np.linalg.solve(K, y)
+        A = H.T @ Kinv_dm + np.eye(M)
+        LA = np.linalg.cholesky(A)
+        alpha = Kinv_y - Kinv_dm @ np.linalg.solve(A, H.T @ Kinv_y)
+        ref_r = dm.T - Kinv_dm.T @ Ks
+        ref = (Ks.T @ alpha, ref_r, (np.linalg.solve(LA, ref_r) ** 2).sum(0))
+        t32 = lambda a: torch.as_tensor(a, dtype=torch.float32)  # noqa: E731
+        lib_r = t32(dm).T - t32(Kinv_dm).T @ t32(Ks)
+        lib_u = torch.linalg.solve_triangular(t32(LA), lib_r, upper=False)
+        lib = (t32(Ks).T @ t32(alpha), lib_r, (lib_u**2).sum(0))
+        mine = _mean_stage_f32(np.concatenate([alpha[:, None], Kinv_dm], axis=1), Ks, dm, LA)
+        for name, got, want, got_l in zip(("k . alpha", "r", "|u|^2"), mine, ref, lib):
+            err_mine = np.max(np.abs(got - want))
+            err_lib = np.max(np.abs(got_l.numpy() - want))
+            assert np.isfinite(err_mine) and err_mine <= 2.0 * err_lib, (name, err_mine, err_lib)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     t = lambda *s: torch.zeros(*s, dtype=torch.float64)  # noqa: E731
     Lk = torch.eye(5, dtype=torch.float64)[None].repeat(2, 1, 1)
